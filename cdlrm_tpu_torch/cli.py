@@ -1,0 +1,60 @@
+"""Serving CLI, the counterpart of cdlrm_tpu/cli.py's ``--inference-only``
+path: evaluate the test stream on one device, optionally from a cdlrm_tpu
+checkpoint.
+
+Example (tiny, CPU-runnable):
+  python -m cdlrm_tpu_torch.cli --device cpu --inference-only \
+    --data-generation random --arch-embedding-size 1000-500-2000 \
+    --arch-sparse-feature-size 16 --arch-mlp-bot 13-32-16 \
+    --arch-mlp-top 16-8-1 --mini-batch-size 64 --num-batches 10 \
+    --cache-size 128 --num-ways 4 --loss-function bce
+
+Every flag but ``--device`` is cdlrm_tpu's (cdlrm_tpu.config); training
+flags are accepted and refused unless ``--inference-only`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from cdlrm_tpu.config import config_from_args
+from cdlrm_tpu_torch.config import build_dataset
+
+
+def main(argv=None) -> int:
+    dev_parser = argparse.ArgumentParser(add_help=False)
+    dev_parser.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the cache and the dense model live (default: cuda)",
+    )
+    ns, rest = dev_parser.parse_known_args(argv)
+    cfg = config_from_args(rest)
+    if ns.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available (use --device cpu)")
+    if not cfg.inference_only:
+        raise SystemExit(
+            "cdlrm_tpu_torch serves only (--inference-only); training is "
+            "ROADMAP.md queue 1"
+        )
+    np.set_printoptions(precision=cfg.print_precision)
+    train_ds, test_ds, cfg = build_dataset(cfg)
+
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    trainer = CachedDlrmTrainer(cfg, train_ds, test_ds, device=torch.device(ns.device))
+    try:
+        if cfg.load_model:
+            trainer.load_checkpoint(cfg.load_model)
+        if test_ds is not None:
+            trainer.evaluate()
+    finally:
+        trainer.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,126 @@
+"""Dense DLRM stack, the counterpart of cdlrm_tpu/models/dlrm.py: bottom
+MLP -> feature interaction -> top MLP, with the loss_threshold clamp.
+
+Parameters are a plain dict ``{"bot": [(W, b), ...], "top": [...]}`` of
+tensors, the same tree cdlrm_tpu keeps, so a cdlrm_tpu checkpoint's leaves
+map onto it one to one (:func:`params_from_jax`). The loss waits for the
+training port.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from cdlrm_tpu_torch.models.mlp import MLPParams, apply_mlp, cast_matmul, init_mlp
+
+DLRMParams = Dict[str, MLPParams]
+
+
+def derive_top_mlp_input_dim(
+    num_sparse: int, bot_out: int, interaction_op: str, interaction_itself: bool
+) -> int:
+    """First dim of the top MLP (cdlrm_tpu derive_top_mlp_input_dim)."""
+    num_fea = num_sparse + 1
+    if interaction_op == "dot":
+        if interaction_itself:
+            return (num_fea * (num_fea + 1)) // 2 + bot_out
+        return (num_fea * (num_fea - 1)) // 2 + bot_out
+    if interaction_op == "cat":
+        return num_fea * bot_out
+    raise ValueError(f"unsupported interaction op: {interaction_op}")
+
+
+def init_dlrm(
+    rng: np.random.Generator,
+    ln_bot: Sequence[int],
+    ln_top: Sequence[int],
+    device: Optional[torch.device] = None,
+) -> DLRMParams:
+    """Bottom MLP then top MLP, from the same numpy draws as cdlrm_tpu."""
+    return {"bot": init_mlp(rng, ln_bot, device), "top": init_mlp(rng, ln_top, device)}
+
+
+def params_from_jax(
+    src: Union[dict, Sequence[np.ndarray]],
+    n_bot: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> DLRMParams:
+    """cdlrm_tpu dense parameters -> this package's parameter dict.
+
+    ``src`` is either the pytree ``{"bot": [(W, b), ...], "top": [...]}``
+    of numpy-convertible arrays, or its leaves in the order
+    ``jax.tree_util.tree_flatten`` gives them — sorted keys, so every bottom
+    (W, b) pair, then every top pair. That is the order in which cdlrm_tpu
+    writes ``dense_params.npz`` (``leaf_0``, ``leaf_1``, ...); a leaf list
+    needs ``n_bot``, the number of bottom layers."""
+    if isinstance(src, dict):
+        n_bot = len(src["bot"])
+        leaves = [a for key in ("bot", "top") for pair in src[key] for a in pair]
+    else:
+        leaves = list(src)
+        if n_bot is None:
+            raise ValueError("a leaf list needs n_bot (bottom layer count)")
+    if len(leaves) % 2 or len(leaves) // 2 <= n_bot:
+        raise ValueError(
+            f"{len(leaves)} leaves cannot hold {n_bot} bottom layers plus a top MLP"
+        )
+    tensors = [
+        torch.from_numpy(np.array(a, dtype=np.float32)).to(device) for a in leaves
+    ]
+    pairs = list(zip(tensors[0::2], tensors[1::2]))
+    return {"bot": pairs[:n_bot], "top": pairs[n_bot:]}
+
+
+@functools.lru_cache(maxsize=None)
+def _tril_flat_index(nf: int, itself: bool, device: torch.device) -> torch.Tensor:
+    """Flat [nf*nf] positions of np.tril_indices(nf, k=0 if itself else -1):
+    cdlrm_tpu's lower-triangle order (dlrm.py:79-80)."""
+    li, lj = np.tril_indices(nf, k=0 if itself else -1)
+    return torch.from_numpy(li * nf + lj).to(device)
+
+
+def interact_features(
+    x: torch.Tensor,
+    ly: torch.Tensor,
+    interaction_op: str = "dot",
+    interaction_itself: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """x: [B, D] dense feature; ly: [T, B, D] embedding lookups."""
+    b, d = x.shape
+    t = ly.shape[0]
+    if interaction_op == "cat":
+        return torch.cat([x, ly.permute(1, 0, 2).reshape(b, t * d)], dim=1)
+    if interaction_op != "dot":
+        raise ValueError(f"unsupported interaction op: {interaction_op}")
+    feats = torch.cat([x[None], ly], dim=0).permute(1, 0, 2)  # [B, F, D]
+    z = cast_matmul(feats, feats.transpose(1, 2), compute_dtype)  # [B, F, F]
+    nf = t + 1
+    idx = _tril_flat_index(nf, bool(interaction_itself), z.device)
+    return torch.cat([x, z.reshape(b, nf * nf)[:, idx]], dim=1)
+
+
+def dlrm_forward(
+    params: DLRMParams,
+    dense_x: torch.Tensor,
+    ly: torch.Tensor,
+    interaction_op: str = "dot",
+    interaction_itself: bool = False,
+    loss_threshold: float = 0.0,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Full dense stack; ``ly`` is [T, B, D] pooled embedding outputs.
+    Returns probabilities [B, 1] in float32."""
+    x = apply_mlp(params["bot"], dense_x, sigmoid_layer=-1, compute_dtype=compute_dtype)
+    r = interact_features(x, ly, interaction_op, interaction_itself, compute_dtype)
+    p = apply_mlp(
+        params["top"], r, sigmoid_layer=len(params["top"]) - 1,
+        compute_dtype=compute_dtype,
+    )
+    if 0.0 < loss_threshold < 1.0:
+        p = torch.clamp(p, loss_threshold, 1.0 - loss_threshold)
+    return p

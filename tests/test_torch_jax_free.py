@@ -1,0 +1,123 @@
+"""cdlrm_tpu_torch never imports jax, and its config route matches cdlrm_tpu's.
+
+``Config.finalize`` and the packed-wire probe import jax modules lazily in
+cdlrm_tpu (config.py:367-368, host_cache.py:383); the port points those
+imports at its own jax-free modules (cdlrm_tpu_torch/config.py). The guard
+runs the whole serving path in a fresh interpreter where importing jax
+fails."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from cdlrm_tpu.config import Config
+from cdlrm_tpu_torch.config import finalize
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# any import of jax (or of a jax module of cdlrm_tpu) raises ImportError
+_BLOCK_JAX = "import sys; sys.modules['jax'] = None\n"
+_JAX_LOADED = (
+    "loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and "
+    "(m.split('.')[0] in ('jax', 'jaxlib') or m in ('cdlrm_tpu.models.dlrm', "
+    "'cdlrm_tpu.models.tricks', 'cdlrm_tpu.train.step')))\n"
+    "assert not loaded, loaded\n"
+)
+_SERVE = _BLOCK_JAX + """
+import numpy as np
+from cdlrm_tpu.config import Config
+from cdlrm_tpu_torch.config import build_dataset
+from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+for pooled in (1, 3):
+    cfg = Config(arch_embedding_size="1000-500-2000", arch_sparse_feature_size=16,
+                 arch_mlp_bot="13-32-16", arch_mlp_top="16-8-1", mini_batch_size=64,
+                 num_batches=4, cache_size=128, num_ways=4, loss_function="bce",
+                 num_indices_per_lookup=pooled, num_indices_per_lookup_fixed=pooled == 1,
+                 inference_only=True, round_targets=True)
+    train_ds, test_ds, cfg = build_dataset(cfg)
+    tr = CachedDlrmTrainer(cfg, train_ds, test_ds, device="cpu")
+    acc, auc = tr.evaluate(max_batches=2)
+    tr.close()
+    assert 0.0 <= acc <= 1.0 and tr.metrics.eval_lookups > 0
+""" + _JAX_LOADED + "print('SERVED')\n"
+
+_CLI = _BLOCK_JAX + """
+import runpy
+try:
+    runpy.run_module("cdlrm_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+""" + _JAX_LOADED
+
+
+def _run(code, *args):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(
+        [sys.executable, "-c", code, *args], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+
+
+def test_serving_path_runs_without_jax():
+    res = _run(_SERVE)
+    assert res.returncode == 0, res.stderr
+    assert "SERVED" in res.stdout and "Test accuracy" in res.stdout
+
+
+def test_cli_serves_without_jax():
+    res = _run(
+        _CLI, "--device", "cpu", "--inference-only", "--data-generation", "random",
+        "--arch-embedding-size", "1000-500-2000", "--arch-sparse-feature-size", "16",
+        "--arch-mlp-bot", "13-32-16", "--arch-mlp-top", "16-8-1",
+        "--mini-batch-size", "64", "--num-batches", "4", "--cache-size", "128",
+        "--num-ways", "4", "--loss-function", "bce", "--round-targets",
+    )
+    assert res.returncode == 0, res.stderr
+    assert "Test accuracy" in res.stdout
+
+
+def test_cli_refuses_training():
+    from cdlrm_tpu_torch import cli
+
+    with pytest.raises(SystemExit, match="inference-only"):
+        cli.main(["--device", "cpu", "--arch-embedding-size", "100-200"])
+
+
+def _fields_equal(a: Config, b: Config):
+    for f in dataclasses.fields(Config):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            np.testing.assert_array_equal(va, vb, err_msg=f.name)
+        else:
+            assert va == vb, f.name
+
+
+@pytest.mark.parametrize("op,itself", [("dot", False), ("dot", True), ("cat", False)])
+@pytest.mark.parametrize("md", [False, True])
+@pytest.mark.parametrize("max_ind_range", [-1, 700])
+def test_finalize_matches_config_finalize(op, itself, md, max_ind_range):
+    ln_emb = np.array([1000, 50, 3000, 20000])
+    kw = dict(arch_sparse_feature_size=16, arch_mlp_bot="13-32-16", arch_mlp_top="16-1",
+              arch_interaction_op=op, arch_interaction_itself=itself, md_flag=md,
+              max_ind_range=max_ind_range, mini_batch_size=32)
+    want = Config(**kw).finalize(ln_emb=ln_emb, m_den=13)
+    got = finalize(Config(**kw), ln_emb=ln_emb, m_den=13)
+    _fields_equal(got, want)
+    want_d = Config(arch_embedding_size="40-50-60", **kw).finalize()
+    got_d = finalize(Config(arch_embedding_size="40-50-60", **kw))
+    _fields_equal(got_d, want_d)
+
+
+def test_jax_free_host_restores_modules():
+    """The stand-ins are visible only inside the block; the real cdlrm_tpu
+    modules (loaded in this process) come back after it."""
+    import cdlrm_tpu.models.dlrm as real
+    from cdlrm_tpu_torch.config import jax_free_host
+    from cdlrm_tpu_torch.models import dlrm as port
+
+    with jax_free_host():
+        assert sys.modules["cdlrm_tpu.models.dlrm"] is port
+    assert sys.modules["cdlrm_tpu.models.dlrm"] is real
