@@ -1,16 +1,16 @@
-"""Serving CLI, the counterpart of cdlrm_tpu/cli.py's ``--inference-only``
-path: evaluate the test stream on one device, optionally from a cdlrm_tpu
-checkpoint.
+"""Training and serving CLI, the counterpart of cdlrm_tpu/cli.py on one
+device: train on the stream (unless ``--inference-only``), then evaluate the
+test stream, optionally starting from a cdlrm_tpu checkpoint.
 
 Example (tiny, CPU-runnable):
-  python -m cdlrm_tpu_torch.cli --device cpu --inference-only \
-    --data-generation random --arch-embedding-size 1000-500-2000 \
-    --arch-sparse-feature-size 16 --arch-mlp-bot 13-32-16 \
-    --arch-mlp-top 16-8-1 --mini-batch-size 64 --num-batches 10 \
-    --cache-size 128 --num-ways 4 --loss-function bce
+  python -m cdlrm_tpu_torch.cli --device cpu --data-generation random \
+    --arch-embedding-size 1000-500-2000 --arch-sparse-feature-size 16 \
+    --arch-mlp-bot 13-32-16 --arch-mlp-top 16-8-1 --mini-batch-size 64 \
+    --num-batches 20 --cache-size 128 --num-ways 4 --loss-function bce \
+    --lookahead 4 --print-freq 10
 
-Every flag but ``--device`` is cdlrm_tpu's (cdlrm_tpu.config); training
-flags are accepted and refused unless ``--inference-only`` is given.
+Every flag but ``--device`` is cdlrm_tpu's (cdlrm_tpu.config); the trainer
+refuses the ones the port does not implement yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -35,11 +35,6 @@ def main(argv=None) -> int:
     cfg = config_from_args(rest)
     if ns.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (use --device cpu)")
-    if not cfg.inference_only:
-        raise SystemExit(
-            "cdlrm_tpu_torch serves only (--inference-only); training is "
-            "ROADMAP.md queue 1"
-        )
     np.set_printoptions(precision=cfg.print_precision)
     train_ds, test_ds, cfg = build_dataset(cfg)
 
@@ -49,6 +44,8 @@ def main(argv=None) -> int:
     try:
         if cfg.load_model:
             trainer.load_checkpoint(cfg.load_model)
+        if not cfg.inference_only:
+            trainer.train(max_steps=cfg.num_batches if cfg.num_batches > 0 else None)
         if test_ds is not None:
             trainer.evaluate()
     finally:

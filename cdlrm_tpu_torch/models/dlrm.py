@@ -3,8 +3,8 @@ MLP -> feature interaction -> top MLP, with the loss_threshold clamp.
 
 Parameters are a plain dict ``{"bot": [(W, b), ...], "top": [...]}`` of
 tensors, the same tree cdlrm_tpu keeps, so a cdlrm_tpu checkpoint's leaves
-map onto it one to one (:func:`params_from_jax`). The loss waits for the
-training port.
+map onto it one to one (:func:`params_from_jax`). :func:`compute_loss` is
+cdlrm_tpu's formula, clip included.
 """
 
 from __future__ import annotations
@@ -124,3 +124,30 @@ def dlrm_forward(
     if 0.0 < loss_threshold < 1.0:
         p = torch.clamp(p, loss_threshold, 1.0 - loss_threshold)
     return p
+
+
+_EPS = 1e-7  # numeric guard for log() on unclamped sigmoid outputs
+
+
+def compute_loss(
+    z: torch.Tensor,
+    t: torch.Tensor,
+    loss_function: str = "mse",
+    loss_weights: Optional[Sequence[float]] = None,
+) -> torch.Tensor:
+    """Mean loss over the batch (cdlrm_tpu compute_loss, dlrm.py:110-129):
+    mse, bce or wbce. The log terms read ``z`` clipped to [_EPS, 1 - _EPS],
+    written out rather than taken from ``binary_cross_entropy``, whose clamp
+    differs."""
+    t = t.to(z.dtype)
+    if loss_function == "mse":
+        return torch.mean((z - t) ** 2)
+    zc = torch.clamp(z, _EPS, 1.0 - _EPS)
+    bce = -(t * torch.log(zc) + (1.0 - t) * torch.log(1.0 - zc))
+    if loss_function == "bce":
+        return torch.mean(bce)
+    if loss_function == "wbce":
+        w = torch.as_tensor(loss_weights, dtype=z.dtype, device=z.device)
+        per_example_w = w[t.to(torch.int64).reshape(-1)].reshape(t.shape)
+        return torch.mean(per_example_w * bce)
+    raise ValueError(f"unsupported loss function: {loss_function}")

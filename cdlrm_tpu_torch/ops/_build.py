@@ -4,7 +4,8 @@ The source is compiled with nvcc for Hopper (``sm_90a``) into a shared
 library with a plain C interface, once per source content: the library's
 name carries a hash of the source and the flags, and lives in
 ``cdlrm_tpu_torch/csrc/build/`` (listed in .gitignore). It is loaded with
-ctypes; pointers and the stream pass as ``c_void_p``, sizes as ``c_int64``.
+ctypes; pointers and the stream pass as ``c_void_p``, sizes as ``c_int64``,
+a scale as ``c_float``.
 Nothing here runs at import time: the first kernel launch builds and loads.
 """
 
@@ -78,10 +79,29 @@ def library() -> ctypes.CDLL:
             lib.cdlrm_gather_rows.restype = ctypes.c_int
             lib.cdlrm_scatter_set_rows.argtypes = [_P, _P, _P, _P, _I64, _I64, _P]
             lib.cdlrm_scatter_set_rows.restype = ctypes.c_int
+            lib.cdlrm_scatter_add_rows.argtypes = [_P, _P, _P, _P, _I64, _I64, _P]
+            lib.cdlrm_scatter_add_rows.restype = ctypes.c_int
+            lib.cdlrm_index_add_rows.argtypes = [_P, _P, _P, _I64, _I64, ctypes.c_float, _P]
+            lib.cdlrm_index_add_rows.restype = ctypes.c_int
             lib.cdlrm_cuda_error_string.argtypes = [ctypes.c_int]
             lib.cdlrm_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def check_operands(kernel: str, tensors: dict, dtypes: dict) -> None:
+    """The kernels take contiguous tensors of one CUDA device with fixed
+    dtypes: raise on anything else (no silent fallback)."""
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    for key, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {key} on {t.device}, expected {dev}")
+        if t.dtype != dtypes[key]:
+            raise TypeError(f"{kernel}: {key} must be {dtypes[key]}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {key} must be contiguous")
 
 
 def check(lib: ctypes.CDLL, err: int, kernel: str) -> None:

@@ -1,6 +1,6 @@
-"""Device steps of the cached serving path, the counterpart of
-cdlrm_tpu/train/step.py: the cached eval step, the refill step, and the
-slot wire they read.
+"""Device steps of the cached path on one device, the counterpart of
+cdlrm_tpu/train/step.py: the cached train step (plain and packed dedup
+wires, SGD), the cached eval step, the refill step, and the wires they read.
 
 Each step is a plain function over tensors on one device. PyTorch runs
 eagerly, so there is no jit; the cache is updated in place where cdlrm_tpu
@@ -15,23 +15,25 @@ such switches and ignores those config fields.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cdlrm_tpu.cache.geometry import CacheGeometry
-from cdlrm_tpu_torch.models.dlrm import dlrm_forward
-from cdlrm_tpu_torch.ops.lookup import gather_rows
-from cdlrm_tpu_torch.ops.scatter import scatter_set_rows
+from cdlrm_tpu_torch.models.dlrm import compute_loss, dlrm_forward
+from cdlrm_tpu_torch.ops.lookup import gather_rows, index_add_rows
+from cdlrm_tpu_torch.ops.scatter import scatter_add_rows, scatter_set_rows
 
 
 class StepConfig(NamedTuple):
-    """The cdlrm_tpu StepConfig fields that the serving path reads, under the
-    same names."""
+    """The cdlrm_tpu StepConfig fields that the one-device cached path reads,
+    under the same names."""
 
     interaction_op: str = "dot"
     interaction_itself: bool = False
+    loss_function: str = "mse"
+    loss_weights: Tuple[float, ...] = (1.0, 1.0)
     loss_threshold: float = 0.0
     # one device: the refill has no collective ('off'); 'strict' and 'delta'
     # broadcast between replicas and come with multi-GPU data parallelism
@@ -41,6 +43,12 @@ class StepConfig(NamedTuple):
     # table-local ids (pack_slots), unpacked on the device
     wire_pack: bool = False
     wire_bits: int = 24  # == WIRE_MAX_BITS
+    # packed dedup wire (host_cache.probe_dedup): per lookup a bit-packed
+    # table-local first-seen rank into a per-step unique-slot list; the step
+    # gathers each unique row once and scatters one summed update per row
+    dedup: bool = False
+    inv_bits: int = 13  # rank wire width: >= wire_width(lookups_per_table-1)
+    uniq_bits: int = 24  # unique-list wire width (== wire_bits)
     optimizer: str = "sgd"
 
     @property
@@ -115,6 +123,193 @@ def _unpack_slots(
     return torch.where(local == (1 << bits) - 1, trash, local + table_offsets[:, None])
 
 
+def _decode_dedup(
+    inv_wire: torch.Tensor, uniq_wire: torch.Tensor, uniq_counts: torch.Tensor,
+    table_offsets: torch.Tensor, trash_row: int, inv_bits: int, uniq_bits: int,
+    n: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode the packed dedup wire (cdlrm_tpu _decode_dedup, step.py:262).
+
+    inv_wire [T, IB]: table-local first-seen ranks (sentinel = masked).
+    uniq_wire [UB_BYTES] (flat): position 0 is the reserved trash rank
+    (sentinel-coded), then each table's local unique slot ids tightly
+    concatenated, then sentinel padding to the bucket.
+    Returns (uniq_slots [Ub] int32 global rows, ginv [T*n] int32 ranks into
+    uniq_slots; masked positions -> 0, the trash rank)."""
+    t_count = inv_wire.shape[0]
+    ub = ((uniq_wire.shape[0] - 4) * 8) // uniq_bits  # exact: bits >= 9
+    cum = torch.cumsum(uniq_counts.to(torch.int64), 0)
+    # unique list: element j>=1 holds data position j-1; its table is the
+    # first t with cum[t] > j-1
+    vals = _unpack_raw(uniq_wire[None, :], uniq_bits, ub)[0]
+    pos = torch.arange(ub, dtype=torch.int64, device=uniq_wire.device) - 1
+    tbl = torch.searchsorted(cum, pos, right=True).clamp_(0, t_count - 1)
+    uniq_slots = torch.where(
+        vals == (1 << uniq_bits) - 1, trash_row, vals + table_offsets[tbl]
+    )
+    # inverse: local rank -> 1 + rank_offset[t] (+1 for the trash rank)
+    inv = _unpack_raw(inv_wire, inv_bits, n)
+    base = torch.cat([cum.new_zeros(1), cum[:-1]])[:, None]
+    ginv = torch.where(inv == (1 << inv_bits) - 1, 0, inv + 1 + base)
+    return uniq_slots.to(torch.int32), ginv.reshape(-1).to(torch.int32)
+
+
+def _pool(rows, ls_mask, t_count: int, b_loc: int, d: int, pooled_width: int):
+    """Looked-up rows [T*B(*P), D] -> per-table bag outputs [T, B, D]: a
+    masked sum over P for multi-hot bags."""
+    if pooled_width > 0:
+        r = rows.reshape(t_count, b_loc, pooled_width, d)
+        return torch.sum(r * ls_mask[..., None].to(r.dtype), dim=2)
+    return rows.reshape(t_count, b_loc, d)
+
+
+class _TableOffsets:
+    """The geometry's table offsets as an int32 [T] tensor, one per device,
+    built on first use."""
+
+    def __init__(self, geo: CacheGeometry):
+        self.geo = geo
+        self.per_device: Dict[torch.device, torch.Tensor] = {}
+
+    def __call__(self, device: torch.device) -> torch.Tensor:
+        offs = self.per_device.get(device)
+        if offs is None:
+            offs = self.per_device[device] = torch.as_tensor(
+                self.geo.table_offsets, dtype=torch.int32, device=device
+            )
+        return offs
+
+
+def _stage_aux(cache, aux_slots, aux_rows, trash_row: int) -> None:
+    """Set the batch's miss rows into the aux region. The valid prefix is
+    counted on the device: the aux bucket is padded with the trash row,
+    which no miss is ever staged into."""
+    nv_aux = (aux_slots != trash_row).sum()
+    scatter_set_rows(cache, aux_slots, aux_rows, nv_aux)
+
+
+def make_cached_train_step(
+    geo: CacheGeometry, cfg: StepConfig, pooled_width: int = 0
+) -> Callable:
+    """The one-device cached train step (cdlrm_tpu make_cached_train_step,
+    step.py:524, with ``block=1``, no hot tier, SGD).
+
+    Plain wire (``cfg.dedup`` off, ``body`` step.py:632)::
+
+        step(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets,
+             lr, lr_embeds) -> (params, cache, loss_sum, correct)
+
+    Packed dedup wire (``body_dedup`` step.py:711)::
+
+        step(params, cache, x, inv_wire, ls_mask, uniq_wire, uniq_counts,
+             aux_slots, aux_rows, targets, lr, lr_embeds)
+             -> (params, cache, loss_sum, correct)
+
+    ``params`` comes back as a new dict (dense SGD); the cache is updated in
+    place, where cdlrm_tpu donates it; ``loss_sum`` and ``correct`` are
+    device scalars, read by the caller when it needs them. One replica means
+    no dense-grad mean (``_sync_dense_grads`` is the identity) and no
+    touched-row mask (cdlrm_tpu's ``track_touched`` is off on one replica).
+    ``lr`` and ``lr_embeds`` are Python floats already rounded to float32."""
+    if cfg.optimizer != "sgd":
+        raise NotImplementedError(
+            f"optimizer={cfg.optimizer!r}: the port trains SGD only; AdaGrad "
+            "is ROADMAP.md queue 1"
+        )
+    cdtype = cfg.cdtype
+    trash = geo.trash_row
+    offsets = _TableOffsets(geo)
+
+    def value_and_grad(params, leaf, expand, x, ls_mask, targets, t_count, b_loc, d):
+        """Loss, probabilities, and the gradients with respect to the dense
+        parameters and ``leaf`` (jax.value_and_grad over (params, rows),
+        step.py:675-677). ``expand`` maps the leaf to the per-lookup rows."""
+        flat = [p.detach().requires_grad_() for key in ("bot", "top")
+                for pair in params[key] for p in pair]
+        it = iter(flat)
+        live = {key: [(next(it), next(it)) for _ in params[key]] for key in ("bot", "top")}
+        ly = _pool(expand(leaf), ls_mask, t_count, b_loc, d, pooled_width)
+        p = dlrm_forward(
+            live, x, ly, cfg.interaction_op, cfg.interaction_itself,
+            cfg.loss_threshold, cdtype,
+        )
+        loss = compute_loss(p, targets, cfg.loss_function, cfg.loss_weights)
+        grads = torch.autograd.grad(loss, flat + [leaf])
+        return loss.detach(), p.detach(), grads[:-1], grads[-1]
+
+    def finish(params, dflat, p, loss, targets, lr, b_loc):
+        """Dense SGD and the step's metrics (cdlrm_tpu ``finish``,
+        step.py:613-628, without the pmean)."""
+        it = iter(dflat)
+        params = {
+            key: [(w - lr * next(it), b - lr * next(it)) for w, b in params[key]]
+            for key in ("bot", "top")
+        }
+        # torch.round, like jnp.round, rounds half to even
+        correct = (torch.round(p) == targets).to(torch.float32).sum()
+        return params, loss * b_loc, correct
+
+    def body(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets,
+             lr, lr_embeds):
+        b_loc = targets.shape[0]
+        if cfg.wire_pack:
+            n_lk = b_loc * max(1, pooled_width)
+            slots = _unpack_slots(slots, offsets(slots.device), trash, cfg.wire_bits, n_lk)
+        targets = targets.to(torch.float32)
+        t_count = slots.shape[0]
+        d = cache.shape[-1]
+        _stage_aux(cache, aux_slots, aux_rows, trash)
+        flat_slots = slots.reshape(-1)
+        rows = gather_rows(cache, flat_slots).requires_grad_()
+        loss, p, dflat, drows = value_and_grad(
+            params, rows, lambda r: r, x, ls_mask, targets, t_count, b_loc, d
+        )
+        # sparse SGD: the atomic row add sums duplicate slots (DESIGN.md D3).
+        # Masked multi-hot lanes all carry slot=trash with exactly zero
+        # gradient: spread them across rows (-0.0 is the float identity)
+        # rather than chain every one of them onto the trash row's atomics
+        upd_slots = flat_slots
+        if pooled_width > 0:
+            spread = (
+                torch.arange(flat_slots.shape[0], dtype=torch.int64, device=cache.device)
+                % cache.shape[0]
+            ).to(torch.int32)
+            upd_slots = torch.where(flat_slots == trash, spread, flat_slots)
+        index_add_rows(cache, upd_slots, drows.contiguous(), alpha=-lr_embeds)
+        params, loss_sum, correct = finish(params, dflat, p, loss, targets, lr, b_loc)
+        return params, cache, loss_sum, correct
+
+    def body_dedup(params, cache, x, inv_wire, ls_mask, uniq_wire, uniq_counts,
+                   aux_slots, aux_rows, targets, lr, lr_embeds):
+        b_loc = targets.shape[0]
+        n_lk = b_loc * max(1, pooled_width)
+        targets = targets.to(torch.float32)
+        t_count = inv_wire.shape[0]
+        d = cache.shape[-1]
+        _stage_aux(cache, aux_slots, aux_rows, trash)
+        uniq_slots, ginv = _decode_dedup(
+            inv_wire, uniq_wire, uniq_counts, offsets(inv_wire.device), trash,
+            cfg.inv_bits, cfg.uniq_bits, n_lk,
+        )
+        rows_u = gather_rows(cache, uniq_slots).requires_grad_()  # [Ub, D]
+        # the expand's backward (gather_rows' index_add_rows) segment-sums
+        # duplicate-lookup gradients into [Ub, D], as the take's transpose
+        # does in cdlrm_tpu (step.py:779-787)
+        loss, p, dflat, d_rows_u = value_and_grad(
+            params, rows_u, lambda r: gather_rows(r, ginv), x, ls_mask, targets,
+            t_count, b_loc, d,
+        )
+        # valid unique rows are a prefix of the bucket, [trash, uniq...,
+        # trash-pad]: position 0's delta is the masked lanes' gradient,
+        # exactly zero; the count stays on the device
+        nv = uniq_counts.sum() + 1
+        scatter_add_rows(cache, uniq_slots, -lr_embeds * d_rows_u, nv)
+        params, loss_sum, correct = finish(params, dflat, p, loss, targets, lr, b_loc)
+        return params, cache, loss_sum, correct
+
+    return body_dedup if cfg.dedup else body
+
+
 def make_cached_eval_step(
     geo: CacheGeometry, cfg: StepConfig, pooled_width: int = 0
 ) -> Callable:
@@ -128,30 +323,18 @@ def make_cached_eval_step(
     (step.py:1171): the aux region is the only part written, and every batch
     overwrites it anyway. ``ls_mask`` is read only for pooled bags."""
     cdtype = cfg.cdtype
-    offsets: dict = {}  # device -> int32 [T] table offsets, built once
+    offsets = _TableOffsets(geo)
 
     def step(params, cache, x, slots, ls_mask, aux_slots, aux_rows):
         b_loc = x.shape[0]
         if cfg.wire_pack:
-            offs = offsets.get(slots.device)
-            if offs is None:
-                offs = offsets[slots.device] = torch.as_tensor(
-                    geo.table_offsets, dtype=torch.int32, device=slots.device
-                )
             n_lk = b_loc * max(1, pooled_width)
-            slots = _unpack_slots(slots, offs, geo.trash_row, cfg.wire_bits, n_lk)
+            slots = _unpack_slots(slots, offsets(slots.device), geo.trash_row,
+                                  cfg.wire_bits, n_lk)
         t_count = slots.shape[0]
-        d = cache.shape[-1]
-        # valid prefix counted on the device: the aux bucket is padded with
-        # the trash row, which no miss is ever staged into
-        nv_aux = (aux_slots != geo.trash_row).sum()
-        scatter_set_rows(cache, aux_slots, aux_rows, nv_aux)
+        _stage_aux(cache, aux_slots, aux_rows, geo.trash_row)
         rows = gather_rows(cache, slots.reshape(-1))
-        if pooled_width > 0:
-            r = rows.reshape(t_count, b_loc, pooled_width, d)
-            ly = torch.sum(r * ls_mask[..., None].to(r.dtype), dim=2)
-        else:
-            ly = rows.reshape(t_count, b_loc, d)
+        ly = _pool(rows, ls_mask, t_count, b_loc, cache.shape[-1], pooled_width)
         p = dlrm_forward(
             params, x, ly, cfg.interaction_op, cfg.interaction_itself,
             cfg.loss_threshold, cdtype,

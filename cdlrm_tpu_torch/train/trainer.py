@@ -1,17 +1,29 @@
-"""Cached DLRM serving on one device, the counterpart of the serving subset of
-cdlrm_tpu/train/trainer.py::CachedDlrmTrainer.
+"""Cached DLRM training and serving on one device, the counterpart of
+cdlrm_tpu/train/trainer.py::CachedDlrmTrainer at ``world_size=1`` and
+``scan_steps=1``.
 
 The host side is cdlrm_tpu's, shared: masters, the cache controller
-(occupancy, probe, insert plan), the synthetic and Criteo streams, metrics.
-The device side is this package's: the cache ``[R, D]`` as one float32
-tensor on ``device``, dense parameters as tensors, and the eval and refill
-steps of train/step.py. The same config and seed give the same masters,
-weights, probes and wire bytes as cdlrm_tpu, so a cdlrm_tpu checkpoint serves
-here unchanged.
+(occupancy, probe, insert plan), the lookahead prefetcher and its shadow
+planner, the eviction writeback thread, the assembly pipeline, the synthetic
+and Criteo streams, metrics. The device side is this package's: the cache
+``[R, D]`` as one float32 tensor on ``device``, dense parameters as tensors,
+and the train, eval and refill steps of train/step.py. The same config and
+seed give the same masters, weights, probes, wire bytes and window plans as
+cdlrm_tpu, so the two train the same trajectory, and a cdlrm_tpu checkpoint
+serves here unchanged.
 
-Ported: construction, ``evaluate`` (the pipelined ``--inference-only``
-path), ``refill`` of one insert plan, ``load_checkpoint`` and ``close``.
-Training comes later (ROADMAP.md queue 1).
+Ported: construction, ``train`` (SGD, the plain and packed dedup wires
+chosen per window, the refill prestager), ``evaluate`` (the pipelined
+``--inference-only`` path), ``refill`` of one insert plan,
+``load_checkpoint`` and ``close``. What is not, ``_check_slice`` refuses
+(ROADMAP.md queue 1 names where each comes).
+
+Ordering on the card: every step, refill and staging copy runs on the
+device's default stream, and the host-to-device copies of the pipeline and
+stager threads are synchronous (pageable memory), so each batch's and each
+window's inputs are on the device before the step that reads them is even
+enqueued. Evicted rows leave through a non-blocking copy into pinned memory
+and an event that the eviction thread waits on.
 """
 
 from __future__ import annotations
@@ -26,16 +38,18 @@ import time
 import zlib
 from collections import deque
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cdlrm_tpu.cache.geometry import CacheGeometry
-from cdlrm_tpu.cache.host_cache import HostCacheController, InsertPlan
+from cdlrm_tpu.cache.host_cache import HostCacheController, InsertPlan, build_insert_plan
 from cdlrm_tpu.cache.master import MasterTables, VirtualMasterTables
+from cdlrm_tpu.cache.prefetcher import EvictionManager, LookaheadPrefetcher, WindowData
 from cdlrm_tpu.config import Config
 from cdlrm_tpu.data.synthetic import Batch
+from cdlrm_tpu.ops import native
 from cdlrm_tpu.utils.metrics import StreamingAUC, accuracy_count
 from cdlrm_tpu.utils.padding import pad_to_bucket, pow2_bucket
 from cdlrm_tpu_torch.config import jax_free_host
@@ -48,23 +62,142 @@ CHECKPOINT_FORMAT_VERSION = 3
 
 @dataclass
 class TrainMetrics:
-    """cdlrm_tpu's TrainMetrics fields that serving fills; the training
-    counters come with the trainer."""
+    """cdlrm_tpu's TrainMetrics (trainer.py:67-99) without the multi-host
+    fields."""
 
+    steps: int = 0
+    examples: int = 0
+    loss_sum: float = 0.0
+    correct: float = 0.0
+    train_time_s: float = 0.0
     caching_overhead_s: float = 0.0
     refills: int = 0
+    hits: int = 0
+    lookups: int = 0
     # eval probes are counted apart from training's
     eval_hits: int = 0
     eval_lookups: int = 0
+    table_hits: Optional[np.ndarray] = None
+    table_lookups: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / max(1, self.lookups)
 
     @property
     def eval_hit_rate(self) -> float:
         return self.eval_hits / max(1, self.eval_lookups)
 
+    @property
+    def per_table_hit_rates(self) -> Optional[np.ndarray]:
+        if self.table_hits is None or self.table_lookups == 0:
+            return None
+        return self.table_hits / self.table_lookups
 
-def _check_slice(cfg: Config) -> None:
+
+class _ProbeStats:
+    """Per-batch train probe counters, added to TrainMetrics when the train
+    loop consumes the batch, not when the pipeline probes it ahead
+    (cdlrm_tpu trainer.py:102-127)."""
+
+    __slots__ = ("hits", "lookups", "table_hits")
+
+    def __init__(self, t_count: int):
+        self.hits = 0
+        self.lookups = 0
+        self.table_hits = np.zeros(t_count, dtype=np.int64)
+
+    def add(self, hit_counts: np.ndarray, num_lookups: int) -> None:
+        self.hits += int(hit_counts.sum())
+        self.lookups += num_lookups
+        self.table_hits += hit_counts
+
+    def commit(self, m: TrainMetrics) -> None:
+        m.hits += self.hits
+        m.lookups += self.lookups
+        if m.table_hits is None:
+            m.table_hits = np.zeros(self.table_hits.shape[0], dtype=np.int64)
+        m.table_hits += self.table_hits
+        m.table_lookups += self.lookups // self.table_hits.shape[0]
+
+
+class _WindowStager(threading.Thread):
+    """Depth-1 refill prestager (config.refill_prestage; cdlrm_tpu
+    trainer.py:130-225): pops ready windows from the prefetcher and, for
+    shadow-planned windows, joins the insert plan and copies its padded
+    operands to the device while the previous window still trains. The
+    occupancy replay (``apply_plan_spec``) stays on the train thread at the
+    boundary, so plan metadata is the same with or without staging; with no
+    eviction writeback in flight the trajectory is bit-identical."""
+
+    def __init__(self, trainer):
+        super().__init__(daemon=True, name="window-stager")
+        self.trainer = trainer
+        self.out: "queue.Queue" = queue.Queue(maxsize=1)
+        # the one staged window's slot, freed when the train thread pops it
+        self._slot = threading.Semaphore(1)
+        self.error: Optional[BaseException] = None
+        self._stop_event = threading.Event()
+
+    def _put(self, item) -> bool:
+        while not self._stop_event.is_set():
+            try:
+                self.out.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def run(self) -> None:
+        try:
+            while not self._stop_event.is_set():
+                try:
+                    window = self.trainer.prefetcher.get_window(timeout=0.1)
+                except queue.Empty:
+                    continue
+                if window is None:
+                    break
+                # wait for the depth-1 slot before staging: at most one extra
+                # window's insert rows are held on the device. A semaphore
+                # wakes the moment the train thread pops the staged window,
+                # where cdlrm_tpu polls every 50 ms
+                while not self._slot.acquire(timeout=0.1):
+                    if self._stop_event.is_set():
+                        return
+                tr = self.trainer
+                staged = None
+                if window.plan_spec is not None:
+                    plan = build_insert_plan(window.plan_spec, window.rows, tr.geo.dim)
+                    staged = (plan, tr._refill_device_inputs(plan))
+                if not self._put((window, staged)):
+                    return
+        except BaseException as e:
+            self.error = e
+        finally:
+            self._put(None)
+
+    def get(self) -> Optional[Tuple[WindowData, Optional[tuple]]]:
+        """Pop (window, staged); None = stream exhausted (errors re-raised)."""
+        item = self.out.get()
+        self._slot.release()
+        if item is None and self.error is not None:
+            raise self.error
+        return item
+
+    def stop(self) -> None:
+        self._stop_event.set()
+        try:
+            while True:
+                self.out.get_nowait()
+        except queue.Empty:
+            pass
+
+
+def _check_slice(cfg: Config, wire_pack: bool) -> None:
     """Refuse the config fields this port does not implement yet, rather
-    than ignore them (ROADMAP.md queue 1 names where each comes)."""
+    than ignore them (ROADMAP.md queue 1 names where each comes).
+    ``wire_pack``: whether the slot wire is bit-packed (``pack_wire`` and a
+    geometry whose local slots fit the packed width)."""
     unsupported = {
         "world_size > 1 (multi-GPU)": cfg.world_size > 1,
         "coordinator_address (multi-host)": bool(cfg.coordinator_address),
@@ -74,6 +207,14 @@ def _check_slice(cfg: Config) -> None:
         "wire_x_fp8": cfg.wire_x_fp8,
         "use_cache=False (full-table path)": not cfg.use_cache,
         "optimizer other than sgd (AdaGrad)": cfg.optimizer != "sgd",
+        "scan_steps > 1 (scan blocks)": cfg.scan_steps > 1,
+        "hot_tier_rows > 0 (hot tier)": cfg.hot_tier_rows > 0,
+        "sorted_dedup_wire": cfg.sorted_dedup_wire,
+        "save_model (checkpoint save)": bool(cfg.save_model),
+        "checkpoint_freq > 0 (checkpoint save)": cfg.checkpoint_freq > 0,
+        "the unpacked dedup wire (pack_wire=False with dedup_lookups on|auto)":
+            not wire_pack and cfg.dedup_lookups != "off",
+        "enable_profiling": cfg.enable_profiling,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
@@ -84,7 +225,7 @@ def _check_slice(cfg: Config) -> None:
 
 
 class CachedDlrmTrainer:
-    """Cached DLRM on one device: serving today, training later."""
+    """Cached DLRM on one device: training and serving."""
 
     def __init__(self, cfg: Config, dataset, test_dataset=None, *,
                  device, pooled_width: Optional[int] = None):
@@ -96,8 +237,8 @@ class CachedDlrmTrainer:
             raise ValueError(
                 "call cdlrm_tpu_torch.config.finalize(cfg) (or build_dataset) first"
             )
-        _check_slice(cfg)
         self.cfg = cfg
+        self.dataset = dataset
         self.test_dataset = test_dataset
         self.device = torch.device(device)
         if pooled_width is None:
@@ -105,9 +246,6 @@ class CachedDlrmTrainer:
             pooled_width = 0 if first.ls_mask is None else first.ls_i.shape[2]
         self.pooled_width = pooled_width
 
-        # one generator, drawn in cdlrm_tpu's order: masters, then the dense
-        # weights — the same seed gives both packages the same values
-        rng = np.random.default_rng(cfg.numpy_rand_seed)
         b_loc = cfg.local_batch_size
         test_b_loc = cfg.test_mini_batch_size
         aux_cap = cfg.aux_capacity if cfg.aux_capacity > 0 else (
@@ -116,6 +254,16 @@ class CachedDlrmTrainer:
         self.geo = CacheGeometry.build(
             cfg.ln_emb, cfg.m_spa, cfg.cache_size, cfg.num_ways, aux_cap
         )
+        # slot wire: bit-packed table-local ids at the smallest width that
+        # addresses every table's cache block (train/step.py pack_slots)
+        rows_per_table = self.geo.ways * self.geo.sets + self.geo.aux_capacity
+        self._wire_bits = step_lib.wire_width(int(rows_per_table.max()) - 1)
+        self._wire_pack = bool(cfg.pack_wire and self._wire_bits <= step_lib.WIRE_MAX_BITS)
+        _check_slice(cfg, self._wire_pack)
+
+        # one generator, drawn in cdlrm_tpu's order: masters, then the dense
+        # weights — the same seed gives both packages the same values
+        rng = np.random.default_rng(cfg.numpy_rand_seed)
         if cfg.master_init == "virtual":
             self.master = VirtualMasterTables(cfg.ln_emb, cfg.m_spa, rng)
         else:
@@ -135,21 +283,28 @@ class CachedDlrmTrainer:
             (self.geo.total_rows, self.geo.dim), dtype=torch.float32, device=self.device
         )
 
-        # slot wire: bit-packed table-local ids at the smallest width that
-        # addresses every table's cache block (train/step.py pack_slots)
-        rows_per_table = self.geo.ways * self.geo.sets + self.geo.aux_capacity
-        self._wire_bits = step_lib.wire_width(int(rows_per_table.max()) - 1)
-        self._wire_pack = bool(cfg.pack_wire and self._wire_bits <= step_lib.WIRE_MAX_BITS)
+        # wire choice per window (cdlrm_tpu trainer.py:446-460): 'on' always
+        # takes the packed dedup wire, 'auto' decides per window from the
+        # shadow stats (_apply_window_stats)
+        self._dedup_auto = cfg.dedup_lookups == "auto"
+        self._dedup = cfg.dedup_lookups == "on"
+        self._inv_bits = step_lib.wire_width(b_loc * max(1, pooled_width) - 1)
         scfg = step_lib.StepConfig(
             interaction_op=cfg.arch_interaction_op,
             interaction_itself=cfg.arch_interaction_itself,
+            loss_function=cfg.loss_function,
+            loss_weights=tuple(cfg.loss_weights_list),
             loss_threshold=cfg.loss_threshold,
             refill_broadcast="off",
             compute_dtype=cfg.compute_dtype,
             wire_pack=self._wire_pack,
             wire_bits=self._wire_bits,
+            inv_bits=self._inv_bits,
+            uniq_bits=self._wire_bits,
             optimizer=cfg.optimizer,
         )
+        self.step_cfg = scfg
+        self._step_cache: dict = {}  # dedup -> train step (_get_step)
         # the eval wire is always the plain slot wire (cdlrm_tpu
         # trainer.py:475-478): no dedup variant is needed to serve
         self.eval_step = step_lib.make_cached_eval_step(self.geo, scfg, self.pooled_width)
@@ -158,10 +313,39 @@ class CachedDlrmTrainer:
             functools.partial(self.controller.probe_wire, bits=self._wire_bits)
             if self._wire_pack else self.controller.probe
         )
-        self._eval_bucket_max = 0  # monotone eval staging bucket (_pack_aux)
+        # single-host staging buckets, each a running maximum (_pack_aux)
+        self._bucket_run_max = {"train": 0, "eval": 0, "dedup": 0}
         self._dummy_masks: dict = {}
+
+        # host pipeline (cdlrm_tpu trainer.py:585-606): the eviction thread
+        # writes evicted rows back to the masters; the prefetcher and the
+        # assembly pipeline start with the first train() call
+        self.eviction_fifo: "queue.Queue" = queue.Queue(maxsize=cfg.eviction_fifo_size)
+        if cfg.pin_cores:
+            from cdlrm_tpu.utils.affinity import pin_current_thread
+
+            pin_current_thread(cfg.main_start_core)
+        self.eviction_manager = EvictionManager(
+            self.master, self.eviction_fifo,
+            average_on_writeback=cfg.average_on_writeback,
+            timeout=cfg.eviction_fifo_timeout,
+            pin_core=cfg.main_start_core + 2 if cfg.pin_cores else None,
+        )
+        self.prefetcher: Optional[LookaheadPrefetcher] = None
+        self._pipeline_started = False
+        self._pipe = None
+        self._stager = None
+        self._stream_done = False
         self.global_step = 0
+        # data cursor (epoch, next batch index in it): where the stream
+        # resumes after load_checkpoint
+        self._cursor: Tuple[int, int] = (0, 0)
         self.metrics = TrainMetrics()
+        # float32 learning rates, as cdlrm_tpu holds them (jnp.float32)
+        self._lr = float(np.float32(cfg.learning_rate))
+        self._lr_emb = float(np.float32(cfg.lr_embeds))
+        self._stop_requested = False
+        self.last_window: Optional[dict] = None  # most recent print-window stats
         self._metrics_fp = None
         if cfg.metrics_log:
             log_dir = os.path.dirname(cfg.metrics_log)
@@ -175,32 +359,52 @@ class CachedDlrmTrainer:
         self._metrics_fp.write(json.dumps({"kind": kind, "step": self.global_step, **payload}) + "\n")
         self._metrics_fp.flush()
 
-    def train(self, max_steps: Optional[int] = None):
-        raise NotImplementedError(
-            "training is not ported yet: the cached training step and trainer "
-            "are ROADMAP.md queue 1"
-        )
+    def _to_device(self, a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(self.device)
+
+    # -------------------------------------------------------------------- data
+    def _cache_stream(self, skip: int = 0, epoch: int = 0) -> Iterator[np.ndarray]:
+        """The prefetcher's view of the index stream (cdlrm_tpu
+        trainer.py:711): a second pass over the same batches, dropping the
+        final partial batch as the trainer does; index-only where the
+        dataset offers ``index_batches``."""
+        b = self.cfg.mini_batch_size
+        idx_fn = getattr(self.dataset, "index_batches", None)
+        if idx_fn is not None:
+            kw = (
+                {"epoch": epoch}
+                if getattr(self.dataset, "epoch_seeded_shuffle", False)
+                else {}
+            )
+            for ls_i in idx_fn(skip=skip, **kw):
+                if ls_i.shape[1] == b:
+                    yield ls_i
+            return
+        from cdlrm_tpu.train.pipeline import _batches_from
+
+        for batch in _batches_from(self.dataset, skip, full_size=b, epoch=epoch):
+            if batch.x.shape[0] != b:
+                continue
+            yield batch.ls_i if batch.ls_mask is None else (batch.ls_i, batch.ls_mask)
 
     # ------------------------------------------------------------------ refill
     def _refill_device_inputs(self, plan: InsertPlan):
         """The refill step's operands for an insert plan, padded to
         power-of-two buckets on the host (insert padding -> the trash row,
-        evict padding -> row 0) and copied to the device."""
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
+        evict padding -> row 0) and copied to the device. The one place the
+        padding lives: the boundary and the _WindowStager both stage here."""
         return (
-            dev(pad_to_bucket(plan.insert_slots, self.geo.trash_row)),
-            dev(pad_to_bucket(plan.insert_rows, 0.0)),
-            dev(pad_to_bucket(plan.evict_slots, 0)),
+            self._to_device(pad_to_bucket(plan.insert_slots, self.geo.trash_row)),
+            self._to_device(pad_to_bucket(plan.insert_rows, 0.0)),
+            self._to_device(pad_to_bucket(plan.evict_slots, 0)),
         )
 
     def refill(self, plan: InsertPlan) -> np.ndarray:
         """Apply one insert plan (``self.controller.plan_insert``, which has
         already updated the occupancy) to the device cache through the refill
         step. Returns the evicted rows [E, D], their values before the
-        insert, for the caller to write back to the masters. The window
-        cadence that calls this while training comes with the trainer."""
+        insert, for the caller to write back to the masters."""
         t0 = time.perf_counter()
         self.cache, evicted = self.refill_step(self.cache, *self._refill_device_inputs(plan))
         out = evicted[: plan.evict_slots.shape[0]].cpu().numpy()
@@ -208,13 +412,73 @@ class CachedDlrmTrainer:
         self.metrics.refills += 1
         return out
 
+    def _deferred_host(self, rows: torch.Tensor):
+        """A thunk that returns ``rows`` as a numpy array. On the card the
+        copy into pinned memory starts now, behind the refill on the stream,
+        and the thunk waits on an event recorded after it, so the eviction
+        thread, not the train loop, pays for the transfer; the thunk holds
+        ``rows`` until then."""
+        if self.device.type != "cuda":
+            host = rows.numpy()
+            return lambda: host
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def fetch(host=host, done=done, rows=rows):
+            done.synchronize()
+            return host.numpy()
+
+        return fetch
+
+    def _apply_refill(self, window: WindowData, staged=None) -> None:
+        """Refill at a window boundary (cdlrm_tpu trainer.py:884-969, one
+        host, SGD): replay the shadow-planned occupancy change, run the refill
+        step (evicted rows are gathered before the insert), and queue the
+        evicted rows for writeback."""
+        t0 = time.perf_counter()
+        if staged is not None:
+            # prestaged by the _WindowStager: plan joined, operands on the
+            # device; only the occupancy replay is left
+            plan, d_inputs = staged
+            self.controller.apply_plan_spec(window.plan_spec)
+        else:
+            if window.plan_spec is not None:
+                plan = build_insert_plan(window.plan_spec, window.rows, self.geo.dim)
+                self.controller.apply_plan_spec(window.plan_spec)
+            else:
+                plan = self.controller.plan_insert(window.uniques, window.rows)
+            d_inputs = self._refill_device_inputs(plan)
+        self._apply_window_stats(window)
+        self.cache, evicted = self.refill_step(self.cache, *d_inputs)
+        n_evict = plan.evict_slots.shape[0]
+        if n_evict:
+            self.eviction_fifo.put(
+                (plan.evict_tables, plan.evict_idxs, self._deferred_host(evicted[:n_evict]))
+            )
+        self.metrics.caching_overhead_s += time.perf_counter() - t0
+        self.metrics.refills += 1
+
+    def _apply_window_stats(self, window: WindowData) -> None:
+        """Adopt the window's shadow-computed statistics (cdlrm_tpu
+        trainer.py:971-1008). With ``dedup_lookups='auto'`` the window takes
+        the packed dedup wire when its unique lookups are at most half of all
+        lookups (cdlrm_tpu's packed-wire threshold). The wire changes only
+        here, before the pipeline probes the window's first batch. The
+        negotiated staging buckets that cdlrm_tpu also adopts here are read
+        only by scan blocks and multi-host runs, which the port refuses."""
+        stats = window.stats
+        if stats is not None and self._dedup_auto and stats.total_lookups > 0:
+            self._dedup = stats.total_uniq <= 0.5 * stats.total_lookups
+
     # ------------------------------------------------------------------- batch
-    def _pack_aux(self, aux_slots_in: np.ndarray, aux_rows_in: np.ndarray):
+    def _pack_aux(self, aux_slots_in: np.ndarray, aux_rows_in: np.ndarray, key: str):
         """Pad one batch's miss rows to a power-of-two bucket; padding targets
-        the trash row. The bucket is monotone (a running maximum), like
-        cdlrm_tpu's single-host eval staging."""
+        the trash row. The bucket is monotone (a running maximum per
+        ``key``, 'train' or 'eval'), like cdlrm_tpu's single-host staging."""
         n = aux_slots_in.shape[0]
-        k = self._eval_bucket_max = max(self._eval_bucket_max, pow2_bucket(n))
+        k = self._bucket_run_max[key] = max(self._bucket_run_max[key], pow2_bucket(n))
         aux_slots = np.full(k, self.geo.trash_row, dtype=np.int32)
         aux_rows = np.zeros((k, self.geo.dim), dtype=np.float32)
         aux_slots[:n] = aux_slots_in
@@ -237,10 +501,10 @@ class CachedDlrmTrainer:
             xt = xt.to(torch.bfloat16)
         return xt
 
-    # -------------------------------------------------------------- eval path
-    def _probe_eval(self, batch: Batch):
-        """Host half of eval assembly: probe the batch against the occupancy
-        and gather its miss rows from the masters."""
+    def _probe(self, batch: Batch, probe):
+        """Run a host probe over one batch (pooled bags flattened, masked
+        positions invalid), with the shared host layer's lazy jax imports
+        pointed at this package."""
         ls_i, mask = batch.ls_i, batch.ls_mask
         t_count = ls_i.shape[0]
         if mask is not None:
@@ -252,12 +516,249 @@ class CachedDlrmTrainer:
             raise ValueError("trainer built for pooled batches, got single-index")
         with jax_free_host():
             if mask is None:
-                pr = self._probe_fn(ls_i, self.master)
-            else:
-                pr = self._probe_fn(
-                    ls_i.reshape(t_count, -1), self.master,
-                    valid=mask.reshape(t_count, -1),
-                )
+                return probe(ls_i, self.master)
+            return probe(ls_i.reshape(t_count, -1), self.master,
+                         valid=mask.reshape(t_count, -1))
+
+    def _stage_batch(self, batch: Batch, wire: tuple, aux: tuple, train: bool) -> tuple:
+        """Copy one batch's step inputs to the device, in the step's argument
+        order: x, the wire's first array, the mask, the rest of the wire, the
+        padded aux slots and rows, and for training the targets (uint8 0/1
+        with round_targets, as on cdlrm_tpu's wire)."""
+        t_count, b = batch.ls_i.shape[:2]
+        mask = (
+            self._dummy_mask(t_count, b) if batch.ls_mask is None
+            else self._to_device(batch.ls_mask)
+        )
+        out = (self._to_device(self._wire_x(batch.x)), self._to_device(wire[0]), mask)
+        out += tuple(self._to_device(a) for a in wire[1:] + aux)
+        if train:
+            y = batch.y.astype(np.uint8) if self.cfg.round_targets else batch.y
+            out += (self._to_device(y),)
+        return out
+
+    def _assemble(self, batch: Batch, b_loc: int):
+        """Probe and stage one training batch (cdlrm_tpu trainer.py:1272) in
+        the wire the current window uses. Called by the AssemblyPipeline
+        thread; returns (device inputs, probe stats, dedup flag, None)."""
+        if self._dedup:
+            return self._assemble_dedup(batch)
+        pr = self._probe(batch, self._probe_fn)
+        stats = _ProbeStats(batch.ls_i.shape[0])
+        stats.add(pr.hit_counts, pr.num_lookups)
+        aux = self._pack_aux(pr.aux_slots, pr.aux_rows, "train")
+        return self._stage_batch(batch, (pr.slots,), aux, train=True), stats, False, None
+
+    def _assemble_dedup(self, batch: Batch):
+        """Training batch in the packed dedup wire (cdlrm_tpu
+        trainer.py:1101): bit-packed first-seen ranks per lookup, and the
+        unique-slot list as table-local ids packed after a reserved trash
+        rank at position 0, padded with the sentinel to a power-of-two
+        bucket."""
+        dr = self._probe(batch, functools.partial(
+            self.controller.probe_dedup, inv_bits=self._inv_bits
+        ))
+        stats = _ProbeStats(batch.ls_i.shape[0])
+        stats.add(dr.hit_counts, dr.num_lookups)
+        u, cnt = dr.uniq, dr.uniq_counts
+        # monotone like _pack_aux; +1 for the reserved trash rank
+        ub = pow2_bucket(1 + u.size, min_size=1024)
+        ub = self._bucket_run_max["dedup"] = max(self._bucket_run_max["dedup"], ub)
+        bits = self._wire_bits
+        ubytes = step_lib.wire_bytes(ub, bits)
+        vals = np.full(ub, -1, np.int64)  # -1 -> sentinel (trash/pad)
+        vals[1: 1 + u.size] = u.astype(np.int64) - np.repeat(self.geo.table_offsets, cnt)
+        if native.available():
+            uniq_wire = native.pack_bits(vals, bits, ubytes)
+        else:
+            uniq_wire = step_lib.pack_slots(vals[None, :], np.zeros(1, np.int64), -1, bits)[0]
+        aux = self._pack_aux(dr.aux_slots, dr.aux_rows, "train")
+        wire = (dr.inv_wire, uniq_wire, cnt.astype(np.int32))
+        return self._stage_batch(batch, wire, aux, train=True), stats, True, None
+
+    # ------------------------------------------------------------------- train
+    def _start_pipeline(self) -> None:
+        """Start the host pipeline once (cdlrm_tpu trainer.py:1505): the
+        eviction thread, the prefetcher with its shadow planner, the refill
+        prestager, and the assembly pipeline all stream continuously, so
+        repeated train() calls resume mid-stream with windows aligned."""
+        if self._pipeline_started:
+            return
+        from cdlrm_tpu.train.pipeline import AssemblyPipeline
+
+        cfg = self.cfg
+        epoch0, j0 = self._cursor
+        self.eviction_manager.start()
+        self.prefetcher = LookaheadPrefetcher(
+            cache_stream_fn=self._cache_stream,
+            master=self.master,
+            lookahead=cfg.lookahead,
+            batch_fifo_size=cfg.batch_fifo_size,
+            cache_workers=cfg.cache_workers,
+            nepochs=cfg.nepochs,
+            pin_core=cfg.main_start_core + 1 if cfg.pin_cores else None,
+            worker_pin_base=cfg.main_start_core + 3 if cfg.pin_cores else None,
+            backend=cfg.prefetch_backend,
+            start_epoch=epoch0,
+            skip_batches=(j0 // cfg.lookahead) * cfg.lookahead,
+            shadow=self.controller.clone(),
+            # the auto-dedup decision reads the window's unique counts
+            stats_spec=(
+                (1, cfg.local_batch_size, True, 0) if self._dedup_auto else None
+            ),
+            skip_first_plan=(j0 % cfg.lookahead != 0),
+        )
+        self.prefetcher.start()
+        self._stager = None
+        if cfg.refill_prestage:
+            self._stager = _WindowStager(self)
+            self._stager.start()
+        self._pipe = AssemblyPipeline(
+            self, cfg.nepochs, cfg.lookahead, max(1, cfg.pipeline_depth),
+            start_epoch=epoch0, start_j=j0,
+        )
+        self._pipe.start()
+        self._stream_done = False
+        self._pipeline_started = True
+
+    def _get_step(self, dedup: bool):
+        """The train step for the given wire, built once per wire."""
+        fn = self._step_cache.get(dedup)
+        if fn is None:
+            fn = self._step_cache[dedup] = step_lib.make_cached_train_step(
+                self.geo, self.step_cfg._replace(dedup=dedup), self.pooled_width
+            )
+        return fn
+
+    def train(self, max_steps: Optional[int] = None, log_fn=print) -> TrainMetrics:
+        """Main loop (cdlrm_tpu trainer.py:1774 at scan_steps=1): consume
+        batches the AssemblyPipeline thread probed and staged ahead, apply
+        the refill at each window boundary it signals, and run the cadences
+        (print, test) on global_step. Each step's loss and accuracy stay on
+        the device until the next print, then come back in one copy."""
+        from cdlrm_tpu.train.pipeline import WINDOW_BOUNDARY, WINDOW_REPLAY
+
+        cfg = self.cfg
+        self._start_pipeline()
+        pipe = self._pipe
+        if self._stream_done:
+            return self.metrics
+        b = cfg.mini_batch_size
+        pending: List[Tuple[torch.Tensor, torch.Tensor]] = []  # (loss_sum, correct)
+        window_t0 = time.perf_counter()
+
+        def flush_pending():
+            if not pending:
+                return
+            vals = torch.stack([v for pair in pending for v in pair]).cpu().tolist()
+            m = self.metrics
+            for ls_v, c_v in zip(vals[0::2], vals[1::2]):
+                m.loss_sum += ls_v
+                m.correct += c_v
+                m.examples += b
+                m.steps += 1
+            pending.clear()
+
+        def print_window(j):
+            nonlocal window_t0
+            flush_pending()
+            dt = time.perf_counter() - window_t0
+            m = self.metrics
+            # ms/it excludes the refill time, reported on its own
+            # (reference semantics, main_no_ddp.py:458-473)
+            ms_it = 1000.0 * max(0.0, dt - m.caching_overhead_s) / max(1, m.steps)
+            overhead_ms = 1000.0 * m.caching_overhead_s / max(1, m.steps)
+            ptr = m.per_table_hit_rates
+            self.last_window = {
+                "ms_per_iter": ms_it,
+                "caching_overhead_ms": overhead_ms,
+                "loss": m.loss_sum / max(1, m.examples),
+                "accuracy": m.correct / max(1, m.examples),
+                "hit_rate": m.hit_rate,  # train probes only
+                "eval_hit_rate": m.eval_hit_rate,
+                "per_table_hit_rates": (
+                    None if ptr is None else [round(float(v), 4) for v in ptr]
+                ),
+                "steps": m.steps,
+                "dedup": self._dedup,  # wire of the current window
+            }
+            log_fn(
+                f"Step {j}: {ms_it:.2f} ms/it, caching overhead "
+                f"{overhead_ms:.3f} ms/it, loss "
+                f"{m.loss_sum / max(1, m.examples):.5f}, "
+                f"acc {m.correct / max(1, m.examples):.5f}, "
+                f"hit-rate {m.hit_rate:.4f}"
+            )
+            self._log_metrics("train_window", self.last_window)
+            m.train_time_s += dt
+            m.steps = m.examples = 0
+            m.loss_sum = m.correct = 0.0
+            m.caching_overhead_s = 0.0
+            window_t0 = time.perf_counter()
+
+        def after_step(cursor):
+            self.global_step += 1
+            self._cursor = (cursor[0], cursor[1] + 1)
+            j = self.global_step
+            if j % cfg.print_freq == 0:
+                print_window(j)
+            if self.test_dataset is not None and cfg.test_freq > 0 and j % cfg.test_freq == 0:
+                acc, auc = self.evaluate(log_fn=log_fn)
+                if (cfg.mlperf_acc_threshold > 0 and acc >= cfg.mlperf_acc_threshold) or (
+                    cfg.mlperf_auc_threshold > 0 and not np.isnan(auc)
+                    and auc >= cfg.mlperf_auc_threshold
+                ):
+                    log_fn(f"MLPerf threshold reached (acc={acc:.5f}, auc={auc:.5f}); stopping")
+                    self._stop_requested = True
+
+        wire_dedup = None  # wire of the batches since the last boundary
+        while True:
+            if max_steps is not None and self.global_step >= max_steps:
+                break
+            if self._stop_requested:
+                break
+            item = pipe.get()
+            if item is None:
+                self._stream_done = True
+                break
+            if item is WINDOW_BOUNDARY or item is WINDOW_REPLAY:
+                if self._stager is not None:
+                    popped = self._stager.get()
+                    window, staged = popped if popped else (None, None)
+                else:
+                    window, staged = self.prefetcher.get_window(), None
+                if window is None:
+                    break
+                if item is WINDOW_REPLAY:
+                    # mid-window resume: the checkpointed occupancy and RNG
+                    # already hold this window's insert plan
+                    self._apply_window_stats(window)
+                else:
+                    self._apply_refill(window, staged)
+                wire_dedup = None
+                pipe.notify_refill_applied()
+                continue
+            cursor, _, inputs, stats, dedup, _ = item
+            if wire_dedup is None:
+                wire_dedup = dedup
+            elif dedup != wire_dedup:
+                # the wire may change only at a window boundary; a batch in
+                # the other format would be misread by this step
+                raise RuntimeError("mixed wire formats within a window")
+            stats.commit(self.metrics)
+            self.params, self.cache, loss_sum, correct = self._get_step(dedup)(
+                self.params, self.cache, *inputs, self._lr, self._lr_emb,
+            )
+            pending.append((loss_sum, correct))
+            after_step(cursor)
+        flush_pending()
+        return self.metrics
+
+    # -------------------------------------------------------------- eval path
+    def _probe_eval(self, batch: Batch):
+        """Host half of eval assembly: probe the batch against the occupancy
+        and gather its miss rows from the masters."""
+        pr = self._probe(batch, self._probe_fn)
         self.metrics.eval_hits += int(pr.hit_counts.sum())
         self.metrics.eval_lookups += pr.num_lookups
         return batch, pr.slots, pr.aux_slots, pr.aux_rows
@@ -266,17 +767,8 @@ class CachedDlrmTrainer:
         """Device half of eval assembly: pad the miss rows and copy the eval
         step's inputs to the device (x, slots, mask, aux_slots, aux_rows)."""
         batch, slots, aux_slots, aux_rows = probed
-        aux_slots, aux_rows = self._pack_aux(aux_slots, aux_rows)
-
-        def dev(a):
-            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-            return t.to(self.device)
-
-        t_count, b = batch.ls_i.shape[:2]
-        mask = (
-            self._dummy_mask(t_count, b) if batch.ls_mask is None else dev(batch.ls_mask)
-        )
-        return (dev(self._wire_x(batch.x)), dev(slots), mask, dev(aux_slots), dev(aux_rows))
+        aux = self._pack_aux(aux_slots, aux_rows, "eval")
+        return self._stage_batch(batch, (slots,), aux, train=False)
 
     def evaluate(self, max_batches: Optional[int] = None, log_fn=print):
         """Eval over the test stream; returns (accuracy, auc).
@@ -386,10 +878,16 @@ class CachedDlrmTrainer:
 
     def load_checkpoint(self, path: str) -> None:
         """Load a single-host cdlrm_tpu checkpoint (meta.pkl,
-        dense_params.npz, cache.npy, occupancy.npz, master.npz). Serving
-        reads no optimizer state, so AdaGrad accumulators in the checkpoint
-        are left unread, and the touched-row mask is aggregation state that
+        dense_params.npz, cache.npy, occupancy.npz, master.npz) and its data
+        cursor, so that training resumes where it stopped. AdaGrad
+        accumulators in the checkpoint are left unread (the port trains and
+        serves with SGD), and the touched-row mask is aggregation state that
         one device never needs."""
+        if self._pipeline_started:
+            raise RuntimeError(
+                "load_checkpoint after training started: the stream cursor "
+                "cannot be rewound on a running pipeline; load into a fresh trainer"
+            )
         with open(os.path.join(path, "meta.pkl"), "rb") as f:
             meta = pickle.load(f)
         fmt = meta.get("format_version", 2 if "cursor" in meta else 1)
@@ -415,11 +913,22 @@ class CachedDlrmTrainer:
         self._load_master(os.path.join(path, "master.npz"))
         self.global_step = meta["global_step"]
         self.controller.rng.bit_generator.state = meta["rng_state"]
+        self._cursor = tuple(meta.get("cursor", (0, 0)))
 
     def close(self) -> None:
         if self._metrics_fp is not None:
             self._metrics_fp.close()
             self._metrics_fp = None
+        if self._pipeline_started:
+            threads = [t for t in (self._pipe, self._stager, self.prefetcher) if t is not None]
+            for t in threads:
+                t.stop()
+            self.eviction_fifo.put(None)
+            # join them: a daemon thread still inside a CUDA call when the
+            # interpreter exits aborts the process
+            for t in threads + [self.eviction_manager]:
+                if t.ident is not None:
+                    t.join(timeout=60)
 
 
 def _pad_batch(batch: Batch, to_size: int) -> Batch:

@@ -5,21 +5,28 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from csrc/row_ops.cu, checks each one bit-exact
-against its plain PyTorch version at the serving shapes and times both,
-serves synthetic traffic through the port's cached serving path at the full
-width of the headline model (26 tables x 250,000 rows, dim 128, bottom MLP
-13-512-256-128, top MLP 512-256-1, cache 16,384 sets x 8 ways, batch 4096,
-bfloat16), checks one batch's scores against the same inputs run through the
-port on the CPU, and runs the port's CLI. Any failed phase raises, and the
-script exits non-zero without printing a result; with no CUDA device it exits
-1 at once. The last line of standard output is a JSON object
-``{"ok": true, "device": {...}}``; the line before it is the card's name and
-power limit, and the line before that the per-kernel JSON summary.
+It builds the CUDA kernels from csrc/row_ops.cu and checks each one against
+its plain PyTorch version at the main path's shapes and times both (the row
+gather, set and add bit-exact; the duplicate-slot row add within a stated
+tolerance of a float64 reference). Then it drives the port's main paths at
+the full width of the headline model (26 tables x 250,000 rows, dim 128,
+bottom MLP 13-512-256-128, top MLP 512-256-1, cache 16,384 sets x 8 ways,
+batch 4096, bfloat16): cached serving, and cached training in two runs of 30
+steps at lookahead 2, one with the default flags (the wire chosen per window,
+here the plain wire) and one on the packed dedup wire. Each run resets every
+kernel's launch count just before it and reads them just after. One serving
+batch and one train step are checked against the same inputs run through
+the port on the CPU. Last it runs the port's CLI, serving and training. Any
+failed phase raises, and the script exits non-zero without printing a
+result; with no CUDA device it exits 1 at once. The last line of standard
+output is a JSON object ``{"ok": true, "device": {...}}``; the line before it
+is the card's name and power limit, and the line before that the per-kernel
+JSON summary.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import os
@@ -34,13 +41,23 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 TABLES, ROWS, DIM = 26, 250_000, 128
+BOT_MLP, TOP_MLP, CACHE_SETS, WAYS = "13-512-256-128", "512-256-1", 16_384, 8
 BATCH, SERVE_BATCHES, WARM_BATCHES = 4096, 20, 10
+TRAIN_STEPS, TRAIN_WARM_STEPS, LOOKAHEAD = 30, 4, 2
 TIMING_REPS = 25
-# serving scores (probabilities) on the card vs the CPU: both round the same
-# operands to bf16 and accumulate in float32, so they differ by summation
-# order, and at worst by one bf16 rounding step (2^-8 relative) of an
-# activation that lands on the other side of a rounding boundary
+# serving scores (probabilities) and one train step's caches, parameters and
+# loss on the card vs the CPU: both round the same operands to bf16 and
+# accumulate in float32, so they differ by summation order (and, for the
+# train step's duplicate slots, by the order of the atomics), and at worst by
+# one bf16 rounding step (2^-8 relative) of a value of order 1 that lands on
+# the other side of a rounding boundary
 SCORE_TOL = 5e-3
+# index_add_rows sums duplicate slots with float32 atomics in a run-dependent
+# order: each output lies within 1e-5 of the float64 sum of the same float32
+# terms at these shapes (values of order 1, at most a few dozen terms per
+# row: a few dozen roundings of half an ulp of a value below 8), as
+# index_add_'s do
+ADD_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -67,11 +84,48 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
+KERNELS = ("gather_rows", "scatter_set_rows", "scatter_add_rows", "index_add_rows")
+
+
+def _wrappers() -> dict:
+    from cdlrm_tpu_torch.ops import lookup, scatter
+
+    return {name: getattr(lookup, name, None) or getattr(scatter, name) for name in KERNELS}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def headline_config(**kw):
+    """The headline model at full width (bench.py:67-70), finalized."""
+    from cdlrm_tpu.config import Config
+    from cdlrm_tpu_torch.config import finalize
+
+    return finalize(Config(
+        arch_sparse_feature_size=DIM, arch_mlp_bot=BOT_MLP, arch_mlp_top=TOP_MLP,
+        mini_batch_size=BATCH, world_size=1, cache_size=CACHE_SETS, num_ways=WAYS,
+        loss_function="bce", round_targets=True, compute_dtype="bfloat16",
+        master_init="virtual", numpy_rand_seed=SEED, **kw,
+    ), ln_emb=np.full(TABLES, ROWS, dtype=np.int64))
+
+
 def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
-    """Phase 2: both kernels against their plain versions, bit-exact, at the
-    serving shapes and at edge shapes; times at the serving shapes."""
-    from cdlrm_tpu_torch.ops.lookup import gather_rows, gather_rows_ref
-    from cdlrm_tpu_torch.ops.scatter import scatter_set_rows, scatter_set_rows_ref
+    """Phase 2: every kernel against its plain version at the main path's
+    shapes and at edge shapes (bit-exact, or within ADD_TOL of a float64
+    reference for the duplicate-slot add); times at the main path's shapes."""
+    from cdlrm_tpu_torch.ops.lookup import (
+        gather_rows, gather_rows_ref, index_add_rows, index_add_rows_ref,
+    )
+    from cdlrm_tpu_torch.ops.scatter import (
+        scatter_add_rows, scatter_add_rows_ref, scatter_set_rows, scatter_set_rows_ref,
+    )
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     cache = torch.randn((rows, DIM), generator=g, device=dev)
@@ -131,26 +185,86 @@ def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
           f"{ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s effective, {gbytes * 1e3:.1f} MB moved), "
           f"index_copy_ {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s)")
     report["scatter_set_rows"] = dict(max_abs_err=err_set, ms=ms, plain_ms=plain_ms)
-    print("kernels: bit-exact against their plain versions")
+
+    # row add: the dedup wire's unique-row update, a distinct valid prefix
+    # (position 0 included) and a trash-padded tail that must stay untouched
+    def add_case(c0, u, nv, distinct_all=False):
+        r = c0.shape[0]
+        s = torch.full((u,), r - 1, dtype=torch.int32, device=dev)
+        k = u if distinct_all else nv
+        s[:k] = torch.randperm(r - 1, generator=g, device=dev)[:k].to(torch.int32)
+        delta = torch.randn((u, c0.shape[1]), generator=g, device=dev)
+        got = scatter_add_rows(c0.clone(), s, delta,
+                               torch.tensor(nv, dtype=torch.int64, device=dev))
+        want = scatter_add_rows_ref(c0.clone(), s, delta, nv)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        assert torch.equal(got, want), f"scatter_add_rows u={u} nv={nv} differs by {e}"
+        assert torch.equal(got[r - 1], c0[r - 1]), "trash row written"
+        if nv < u and not distinct_all:
+            assert torch.equal(got[s[nv:].long()], c0[s[nv:].long()]), "row past nvalid written"
+        return s, delta, e
+
+    s_add, delta_add, err_add = add_case(cache, u, nv)
+    for case in ((cache, u, 0), (cache, u, u, True), (cache, 100_003, 77_777)):
+        err_add = max(err_add, add_case(*case)[2])
+    for case in ((small, 4096, 3000), (small, 4096, 4096, True), (small, 999, 0)):
+        err_add = max(err_add, add_case(*case)[2])
+    err_add = max(err_add, add_case(torch.randn((3000, 6), generator=g, device=dev), 512, 300)[2])
+    ms = time_ms(lambda: scatter_add_rows(cache, s_add, delta_add, nv_dev))
+    plain_ms = time_ms(lambda: scatter_add_rows_ref(cache, s_add, delta_add, nv))
+    gbytes = 3 * nv * DIM * 4 / 1e9
+    print(f"[{card}] scatter_add_rows U={u} nvalid={nv} into [{rows}, {DIM}]: kernel "
+          f"{ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s effective, {gbytes * 1e3:.1f} MB moved), "
+          f"index_add_ {plain_ms:.4f} ms ({gbytes / plain_ms * 1e3:.1f} GB/s)")
+    report["scatter_add_rows"] = dict(max_abs_err=err_add, ms=ms, plain_ms=plain_ms)
+    print("kernels: gather_rows, scatter_set_rows, scatter_add_rows bit-exact against "
+          "their plain versions")
+
+    # duplicate-slot add: one train step's lookups (the plain wire's sparse
+    # update, alpha = -lr_embeds; the gather backward, alpha = 1), slots drawn
+    # from a 60,000-row range so that most rows repeat
+    lr_emb = -float(np.float32(0.3))
+
+    def dup_case(c0, nn, hi, alpha):
+        s = torch.randint(0, hi, (nn,), generator=g, device=dev, dtype=torch.int32)
+        src = torch.randn((nn, c0.shape[1]), generator=g, device=dev)
+        got = index_add_rows(c0.clone(), s, src, alpha)
+        plain = index_add_rows_ref(c0.clone(), s, src, alpha)
+        want = c0.double().index_add_(0, s.long(), (src * alpha).double())
+        torch.cuda.synchronize()
+        e = float((got.double() - want).abs().max())
+        e_plain = float((plain.double() - want).abs().max())
+        assert e <= ADD_TOL, f"index_add_rows n={nn} D={c0.shape[1]} off by {e}"
+        assert e_plain <= ADD_TOL, f"index_add_ itself off by {e_plain}"
+        return s, src, e, e_plain
+
+    # a fresh cache: the timings above have grown the rows they touched
+    fresh = torch.randn((rows, DIM), generator=g, device=dev)
+    s_dup, src_dup, err_dup, err_plain = dup_case(fresh, n, 60_000, lr_emb)
+    del fresh
+    for c0, nn, hi, alpha in ((torch.zeros((131_072, DIM), device=dev), n, 60_000, 1.0),
+                              (small, 4096, 2000, lr_emb),
+                              (torch.randn((3000, 6), generator=g, device=dev), 2048, 300, 1.0)):
+        e, ep = dup_case(c0, nn, hi, alpha)[2:]
+        err_dup, err_plain = max(err_dup, e), max(err_plain, ep)
+    ms = time_ms(lambda: index_add_rows(cache, s_dup, src_dup, lr_emb))
+    plain_ms = time_ms(lambda: index_add_rows_ref(cache, s_dup, src_dup, lr_emb))
+    gbytes = 3 * n * DIM * 4 / 1e9
+    print(f"[{card}] index_add_rows N={n} (slots < 60,000) into [{rows}, {DIM}]: kernel "
+          f"{ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s effective), plain version (scale, then "
+          f"index_add_) {plain_ms:.4f} ms; max |error| vs float64 {err_dup:.3e} "
+          f"(index_add_ {err_plain:.3e}, tolerance {ADD_TOL})")
+    report["index_add_rows"] = dict(max_abs_err=err_dup, ms=ms, plain_ms=plain_ms)
     return report
 
 
 def serve(card: str, dev: torch.device) -> dict:
     """Phase 3: the cached serving path at the headline model's full width."""
-    from cdlrm_tpu.config import Config
     from cdlrm_tpu.data.synthetic import SyntheticDataset
-    from cdlrm_tpu_torch.config import finalize
-    from cdlrm_tpu_torch.ops.lookup import gather_rows
-    from cdlrm_tpu_torch.ops.scatter import scatter_set_rows
     from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer, TrainMetrics
 
-    cfg = finalize(Config(
-        arch_sparse_feature_size=DIM, arch_mlp_bot="13-512-256-128",
-        arch_mlp_top="512-256-1", mini_batch_size=BATCH, world_size=1,
-        cache_size=16_384, num_ways=8, loss_function="bce", round_targets=True,
-        compute_dtype="bfloat16", master_init="virtual", inference_only=True,
-        numpy_rand_seed=SEED,
-    ), ln_emb=np.full(TABLES, ROWS, dtype=np.int64))
+    cfg = headline_config(inference_only=True)
     test_ds = SyntheticDataset(
         m_den=13, ln_emb=cfg.ln_emb, data_size=BATCH * SERVE_BATCHES,
         mini_batch_size=BATCH, num_indices_per_lookup=1,
@@ -173,14 +287,12 @@ def serve(card: str, dev: torch.device) -> dict:
         tr.evaluate(max_batches=2, log_fn=lambda *_: None)  # first-call set-up
         tr.metrics = TrainMetrics()
 
-        gather_rows.launches = 0
-        scatter_set_rows.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         acc, auc = tr.evaluate(max_batches=SERVE_BATCHES)
         wall = time.perf_counter() - t0
-        launches = {"gather_rows": gather_rows.launches,
-                    "scatter_set_rows": scatter_set_rows.launches}
+        launches = read_launches()
         hit = tr.metrics.eval_hit_rate
         print(f"[{card}] served {SERVE_BATCHES} batches of {BATCH}: accuracy {acc:.6f} "
               f"AUC {auc:.6f} eval hit rate {hit:.6f}, {SERVE_BATCHES * BATCH / wall:.1f} "
@@ -211,19 +323,124 @@ def serve(card: str, dev: torch.device) -> dict:
 
 
 def run_cli(dev: torch.device) -> None:
-    """Phase 4: the port's CLI at a small size on the card."""
-    cmd = [
+    """Phase 4: the port's CLI at a small size on the card: serving, then a
+    training run (which evaluates after it)."""
+    common = [
         sys.executable, "-m", "cdlrm_tpu_torch.cli", "--device", dev.type,
-        "--inference-only", "--data-generation", "random",
+        "--data-generation", "random",
         "--arch-embedding-size", "1000-500-2000", "--arch-sparse-feature-size", "16",
         "--arch-mlp-bot", "13-32-16", "--arch-mlp-top", "16-8-1",
         "--mini-batch-size", "64", "--num-batches", "10", "--cache-size", "128",
         "--num-ways", "4", "--loss-function", "bce", "--round-targets",
     ]
-    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
-    if res.returncode != 0 or "Test accuracy" not in res.stdout:
-        raise RuntimeError(f"CLI failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    print("cli:", res.stdout.strip().splitlines()[-1])
+    for extra, want in ((["--inference-only"], "Test accuracy"),
+                        (["--lookahead", "2", "--print-freq", "5"], "Step 10:")):
+        res = subprocess.run(common + extra, cwd=REPO, capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode != 0 or want not in res.stdout or "Test accuracy" not in res.stdout:
+            raise RuntimeError(f"CLI failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        print("cli:", " | ".join(res.stdout.strip().splitlines()[-2:]))
+
+
+def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
+    """One training run of the headline model at full width: TRAIN_WARM_STEPS
+    steps of set-up, then TRAIN_STEPS counted steps of the main path, with
+    every launch count reset just before them. Then one train step on the
+    card against the same inputs through the port on the CPU. Returns the
+    run's numbers and launch counts."""
+    from cdlrm_tpu.data.synthetic import SyntheticDataset
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    cfg = headline_config(lookahead=LOOKAHEAD, print_freq=1 << 30,
+                          dedup_lookups=dedup_lookups)
+    train_ds = SyntheticDataset(
+        m_den=13, ln_emb=cfg.ln_emb, data_size=BATCH * (TRAIN_WARM_STEPS + TRAIN_STEPS + 2),
+        mini_batch_size=BATCH, num_indices_per_lookup=1,
+        num_indices_per_lookup_fixed=True, round_targets=True, seed=SEED + 2,
+    )
+    tr = CachedDlrmTrainer(cfg, train_ds, device=dev)
+    try:
+        t0 = time.perf_counter()
+        m = tr.train(max_steps=TRAIN_WARM_STEPS)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        counters = ("loss_sum", "correct", "examples", "hits", "lookups", "refills",
+                    "caching_overhead_s")
+        before = [getattr(m, c) for c in counters]
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.train(max_steps=TRAIN_WARM_STEPS + TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        loss_sum, correct, examples, hits, lookups, refills, refill_s = (
+            getattr(m, c) - was for c, was in zip(counters, before)
+        )
+        assert tr.eviction_manager.flush(timeout=120), "eviction writeback stalled"
+        written, wire = tr.eviction_manager.rows_written, tr._dedup
+        assert tr.global_step == TRAIN_WARM_STEPS + TRAIN_STEPS
+    finally:
+        tr.close()
+    loss, hit = loss_sum / examples, hits / lookups
+    print(f"[{card}] train dedup_lookups={dedup_lookups}: {TRAIN_STEPS} steps of {BATCH} in "
+          f"{wall:.3f} s host wall, {TRAIN_STEPS * BATCH / wall:.1f} examples/s "
+          f"({1000 * wall / TRAIN_STEPS:.2f} ms/step incl. {refills} refills that held the "
+          f"train thread {refill_s:.3f} s in all; set-up "
+          f"{warm:.2f} s for {TRAIN_WARM_STEPS} steps); loss {loss:.6f}, acc "
+          f"{correct / examples:.6f}, train hit rate {hit:.6f}, dedup wire {wire}, "
+          f"eviction rows written {written}, kernel launches {launches}")
+    assert np.isfinite(loss), loss
+    assert refills > 0, "no refill in the counted steps"
+
+    # the step alone, on the last trained batch (resident ids; the pipeline
+    # threads are stopped): the card against the CPU from the same cache and
+    # parameters, the device time by events over repeated steps, and the
+    # host's probe and its probe + staging of the batch
+    batch = list(itertools.islice(train_ds.batches(), TRAIN_WARM_STEPS + TRAIN_STEPS))[-1]
+    probe = (functools.partial(tr.controller.probe_dedup, inv_bits=tr._inv_bits)
+             if tr._dedup else tr._probe_fn)
+    probe_ms, host_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tr._probe(batch, probe)
+        probe_ms.append(1000 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        inputs, _, dedup, _ = tr._assemble(batch, BATCH)
+        host_ms.append(1000 * (time.perf_counter() - t0))
+    step = tr._get_step(dedup)
+    params_cpu = {k: [(w.to("cpu", copy=True), b.to("cpu", copy=True)) for w, b in v]
+                  for k, v in tr.params.items()}
+    cache_cpu = tr.cache.to("cpu", copy=True)
+    p_dev, c_dev, l_dev, _ = step(tr.params, tr.cache, *inputs, tr._lr, tr._lr_emb)
+    p_cpu, c_cpu, l_cpu, _ = step(params_cpu, cache_cpu, *[x.cpu() for x in inputs],
+                                  tr._lr, tr._lr_emb)
+    assert bool(torch.isfinite(c_dev).all()), "non-finite cache after the step"
+    cache_err = float((c_dev.cpu() - c_cpu).abs().max())
+    param_err = max(float((a.cpu() - b).abs().max())
+                    for k in p_dev for pa, pb in zip(p_dev[k], p_cpu[k]) for a, b in zip(pa, pb))
+    loss_err = abs(float(l_dev) - float(l_cpu)) / BATCH
+    del c_cpu, cache_cpu
+    assert max(cache_err, param_err, loss_err) <= SCORE_TOL, (cache_err, param_err, loss_err)
+    step_ms = time_ms(lambda: step(tr.params, tr.cache, *inputs, tr._lr, tr._lr_emb), 10)
+    print(f"  one step vs the CPU run ({'dedup' if dedup else 'plain'} wire): max |cache "
+          f"difference| {cache_err:.3e}, |param difference| {param_err:.3e}, |loss "
+          f"difference| {loss_err:.3e} (tolerance {SCORE_TOL}); device step {step_ms:.3f} ms "
+          f"by events; host probe {statistics.median(probe_ms):.3f} ms, probe + staging "
+          f"{statistics.median(host_ms):.3f} ms")
+    return dict(launches=launches)
+
+
+def train(card: str, dev: torch.device) -> dict:
+    """Phase 5: cached training at full width in two runs: (a) the default
+    flags, where auto-dedup picks the plain wire (uniform ids: unique lookups
+    are nearly all lookups), and (b) the packed dedup wire."""
+    runs = {"a": train_run(card, dev, "auto"), "b": train_run(card, dev, "on")}
+    la, lb = runs["a"]["launches"], runs["b"]["launches"]
+    assert la["index_add_rows"] > 0 and la["scatter_add_rows"] == 0, la
+    assert lb["scatter_add_rows"] > 0 and lb["index_add_rows"] > 0, lb
+    for launches in (la, lb):
+        assert launches["gather_rows"] > 0 and launches["scatter_set_rows"] > 0, launches
+    return runs
 
 
 def main() -> int:
@@ -245,20 +462,27 @@ def main() -> int:
     print(f"[{card}] kernel library built and loaded in {time.perf_counter() - t0:.2f} s")
 
     rows = CacheGeometry.build(
-        [ROWS] * TABLES, DIM, 16_384, 8, BATCH
+        [ROWS] * TABLES, DIM, CACHE_SETS, WAYS, BATCH
     ).total_rows  # the serving cache's row count
     kernels = check_kernels(card, rows, dev)
     torch.cuda.empty_cache()
-    launches = serve(card, dev)
+    served = serve(card, dev)
     run_cli(dev)
+    runs = train(card, dev)
     assert "jax" not in sys.modules, "the port imported jax"
 
     sources = {"gather_rows": "cdlrm_tpu/ops/lookup.py:70",
-               "scatter_set_rows": "cdlrm_tpu/ops/scatter.py:257"}
+               "scatter_set_rows": "cdlrm_tpu/ops/scatter.py:257",
+               "scatter_add_rows": "cdlrm_tpu/ops/scatter.py:211",
+               "index_add_rows": "cdlrm_tpu/ops/lookup.py:99"}
+    # launches: the sum over the main-path runs (serving, training a and b),
+    # each counted from 0
+    launches = {name: served[name] + runs["a"]["launches"][name] + runs["b"]["launches"][name]
+                for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "cdlrm_tpu_torch/csrc/row_ops.cu",
          "replaces": sources[name], "launches": launches[name], **kernels[name]}
-        for name in ("gather_rows", "scatter_set_rows")
+        for name in KERNELS
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """cdlrm_tpu_torch never imports jax, and its config route matches cdlrm_tpu's.
 
-``Config.finalize`` and the packed-wire probe import jax modules lazily in
-cdlrm_tpu (config.py:367-368, host_cache.py:383); the port points those
-imports at its own jax-free modules (cdlrm_tpu_torch/config.py). The guard
-runs the whole serving path in a fresh interpreter where importing jax
-fails."""
+``Config.finalize`` and the packed-wire and dedup probes import jax modules
+lazily in cdlrm_tpu (config.py:367-368, host_cache.py:383, :440); the port
+points those imports at its own jax-free modules
+(cdlrm_tpu_torch/config.py). The guard runs the whole serving and training
+paths in a fresh interpreter where importing jax fails."""
 
 import dataclasses
 import os
@@ -44,6 +44,27 @@ for pooled in (1, 3):
     assert 0.0 <= acc <= 1.0 and tr.metrics.eval_lookups > 0
 """ + _JAX_LOADED + "print('SERVED')\n"
 
+_TRAIN = _BLOCK_JAX + """
+import numpy as np
+from cdlrm_tpu.config import Config
+from cdlrm_tpu_torch.config import build_dataset
+from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+for pooled, dedup in ((1, "auto"), (1, "on"), (3, "on")):
+    cfg = Config(arch_embedding_size="1000-500-2000", arch_sparse_feature_size=16,
+                 arch_mlp_bot="13-32-16", arch_mlp_top="16-8-1", mini_batch_size=64,
+                 num_batches=8, cache_size=128, num_ways=4, loss_function="bce",
+                 num_indices_per_lookup=pooled, num_indices_per_lookup_fixed=pooled == 1,
+                 lookahead=2, print_freq=4, dedup_lookups=dedup, round_targets=True)
+    train_ds, test_ds, cfg = build_dataset(cfg)
+    tr = CachedDlrmTrainer(cfg, train_ds, test_ds, device="cpu")
+    tr.train(max_steps=8)
+    tr.eviction_manager.flush()
+    acc, auc = tr.evaluate(max_batches=2)
+    tr.close()
+    assert tr.global_step == 8 and tr.metrics.refills == 4, tr.metrics
+    assert tr.eviction_manager.rows_written > 0 and 0.0 <= acc <= 1.0
+""" + _JAX_LOADED + "print('TRAINED')\n"
+
 _CLI = _BLOCK_JAX + """
 import runpy
 try:
@@ -79,11 +100,36 @@ def test_cli_serves_without_jax():
     assert "Test accuracy" in res.stdout
 
 
+def test_training_path_runs_without_jax():
+    """train() with the plain and the packed dedup wire, single-index and
+    pooled bags: the prefetcher, the stager, the pipeline's dedup probe and
+    the eviction writeback all run with jax unimportable."""
+    res = _run(_TRAIN)
+    assert res.returncode == 0, res.stderr
+    assert "TRAINED" in res.stdout and "Step 8:" in res.stdout
+
+
+def test_cli_trains_without_jax():
+    res = _run(
+        _CLI, "--device", "cpu", "--data-generation", "random",
+        "--arch-embedding-size", "1000-500-2000", "--arch-sparse-feature-size", "16",
+        "--arch-mlp-bot", "13-32-16", "--arch-mlp-top", "16-8-1",
+        "--mini-batch-size", "64", "--num-batches", "8", "--cache-size", "128",
+        "--num-ways", "4", "--loss-function", "bce", "--round-targets",
+        "--lookahead", "2", "--print-freq", "4",
+    )
+    assert res.returncode == 0, res.stderr
+    assert "Step 8:" in res.stdout and "Test accuracy" in res.stdout
+
+
 def test_cli_refuses_training():
+    """The CLI trains now; what it refuses is training with a field the port
+    does not implement, before any data is read."""
     from cdlrm_tpu_torch import cli
 
-    with pytest.raises(SystemExit, match="inference-only"):
-        cli.main(["--device", "cpu", "--arch-embedding-size", "100-200"])
+    with pytest.raises(ValueError, match="does not implement.*scan_steps"):
+        cli.main(["--device", "cpu", "--arch-embedding-size", "100-200",
+                  "--arch-sparse-feature-size", "2", "--scan-steps", "4"])
 
 
 def _fields_equal(a: Config, b: Config):
