@@ -1,6 +1,7 @@
 """Training and serving CLI, the counterpart of cdlrm_tpu/cli.py on one
 device: train on the stream (unless ``--inference-only``), then evaluate the
-test stream, optionally starting from a cdlrm_tpu checkpoint.
+test stream, optionally starting from a cdlrm_tpu checkpoint. The cached
+trainer runs by default, the full-table trainer with ``--no-use-cache``.
 
 Example (tiny, CPU-runnable):
   python -m cdlrm_tpu_torch.cli --device cpu --data-generation random \
@@ -38,9 +39,15 @@ def main(argv=None) -> int:
     np.set_printoptions(precision=cfg.print_precision)
     train_ds, test_ds, cfg = build_dataset(cfg)
 
-    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+    device = torch.device(ns.device)
+    if cfg.use_cache:
+        from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
-    trainer = CachedDlrmTrainer(cfg, train_ds, test_ds, device=torch.device(ns.device))
+        trainer = CachedDlrmTrainer(cfg, train_ds, test_ds, device=device)
+    else:
+        from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
+
+        trainer = FullTableDlrmTrainer(cfg, train_ds, test_ds, device=device)
     try:
         if cfg.load_model:
             trainer.load_checkpoint(cfg.load_model)

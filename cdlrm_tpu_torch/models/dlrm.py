@@ -48,31 +48,45 @@ def params_from_jax(
     src: Union[dict, Sequence[np.ndarray]],
     n_bot: Optional[int] = None,
     device: Optional[torch.device] = None,
+    n_emb: int = 0,
 ) -> DLRMParams:
-    """cdlrm_tpu dense parameters -> this package's parameter dict.
+    """cdlrm_tpu parameters -> this package's parameter dict.
 
     ``src`` is either the pytree ``{"bot": [(W, b), ...], "top": [...]}``
-    of numpy-convertible arrays, or its leaves in the order
+    of numpy-convertible arrays, with the full-table trainer's ``"emb"``
+    list of plain [n, D] tables beside them, or its leaves in the order
     ``jax.tree_util.tree_flatten`` gives them — sorted keys, so every bottom
-    (W, b) pair, then every top pair. That is the order in which cdlrm_tpu
-    writes ``dense_params.npz`` (``leaf_0``, ``leaf_1``, ...); a leaf list
-    needs ``n_bot``, the number of bottom layers."""
+    (W, b) pair, then every table, then every top pair. That is the order in
+    which cdlrm_tpu writes ``dense_params.npz`` and ``fulltable_params.npz``
+    (``leaf_0``, ``leaf_1``, ...); a leaf list needs ``n_bot``, the number of
+    bottom layers, and ``n_emb``, the number of tables (0 for the dense
+    parameters alone). The tables come back as a list under ``"emb"`` when
+    there are any."""
     if isinstance(src, dict):
         n_bot = len(src["bot"])
-        leaves = [a for key in ("bot", "top") for pair in src[key] for a in pair]
+        emb = list(src.get("emb", []))
+        n_emb = len(emb)
+        leaves = [a for pair in src["bot"] for a in pair] + emb
+        leaves += [a for pair in src["top"] for a in pair]
     else:
         leaves = list(src)
         if n_bot is None:
             raise ValueError("a leaf list needs n_bot (bottom layer count)")
-    if len(leaves) % 2 or len(leaves) // 2 <= n_bot:
+    n_dense = len(leaves) - n_emb
+    if n_dense % 2 or n_dense // 2 <= n_bot:
         raise ValueError(
-            f"{len(leaves)} leaves cannot hold {n_bot} bottom layers plus a top MLP"
+            f"{len(leaves)} leaves cannot hold {n_bot} bottom layers, {n_emb} "
+            "tables and a top MLP"
         )
     tensors = [
         torch.from_numpy(np.array(a, dtype=np.float32)).to(device) for a in leaves
     ]
-    pairs = list(zip(tensors[0::2], tensors[1::2]))
-    return {"bot": pairs[:n_bot], "top": pairs[n_bot:]}
+    dense = tensors[: 2 * n_bot] + tensors[2 * n_bot + n_emb:]
+    pairs = list(zip(dense[0::2], dense[1::2]))
+    out = {"bot": pairs[:n_bot], "top": pairs[n_bot:]}
+    if n_emb:
+        out["emb"] = tensors[2 * n_bot: 2 * n_bot + n_emb]
+    return out
 
 
 @functools.lru_cache(maxsize=None)

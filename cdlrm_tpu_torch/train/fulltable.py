@@ -1,0 +1,212 @@
+"""Full-table DLRM trainer on one device, the counterpart of
+cdlrm_tpu/train/fulltable.py::FullTableDlrmTrainer (``use_cache=False``,
+``python -m cdlrm_tpu_torch.cli --no-use-cache``).
+
+Every embedding table lives on the device, with no cache, prefetcher or
+masters: the small-config path, and the oracle that pins the cached
+machinery (a fully resident cached run must train the same trajectory). The
+tables are one flat ``[sum(n), D]`` tensor (models/embedding.py); the
+parameters, drawn from one generator in cdlrm_tpu's order (the dense MLPs,
+then the tables), are equal to cdlrm_tpu's for the same seed.
+
+Ported: construction, ``train`` (SGD), ``evaluate``, ``load_checkpoint`` of
+a cdlrm_tpu ``fulltable_params.npz``, ``close``. Refused at construction
+(``_check_fulltable``): multi-device and multi-host runs, QR and MD tables,
+AdaGrad, checkpoint saves and profiling (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from cdlrm_tpu.config import Config
+from cdlrm_tpu.data.synthetic import Batch
+from cdlrm_tpu.utils.metrics import StreamingAUC, accuracy_count
+from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax
+from cdlrm_tpu_torch.models.embedding import init_embedding_tables
+from cdlrm_tpu_torch.train import step as step_lib
+from cdlrm_tpu_torch.train.trainer import _pad_batch
+
+
+def _check_fulltable(cfg: Config) -> None:
+    """Refuse the config fields this trainer does not implement yet."""
+    unsupported = {
+        "world_size > 1 (multi-GPU)": cfg.world_size > 1,
+        "coordinator_address (multi-host)": bool(cfg.coordinator_address),
+        "qr_flag (QR tables)": cfg.qr_flag,
+        "md_flag (mixed-dimension tables)": cfg.md_flag,
+        "optimizer other than sgd (AdaGrad)": cfg.optimizer != "sgd",
+        "save_model (checkpoint save)": bool(cfg.save_model),
+        "checkpoint_freq > 0 (checkpoint save)": cfg.checkpoint_freq > 0,
+        "enable_profiling": cfg.enable_profiling,
+    }
+    bad = [name for name, on in unsupported.items() if on]
+    if bad:
+        raise ValueError(
+            "cdlrm_tpu_torch's full-table trainer does not implement "
+            + ", ".join(bad) + " yet (ROADMAP.md queue 1)"
+        )
+
+
+class FullTableDlrmTrainer:
+    """DLRM with the full tables on one device: training and serving."""
+
+    def __init__(self, cfg: Config, dataset, test_dataset=None, *, device):
+        if cfg.ln_emb is None:
+            raise ValueError(
+                "call cdlrm_tpu_torch.config.finalize(cfg) (or build_dataset) first"
+            )
+        _check_fulltable(cfg)
+        self.cfg = cfg
+        self.dataset = dataset
+        self.test_dataset = test_dataset
+        self.device = torch.device(device)
+        # one generator, drawn in cdlrm_tpu's order (fulltable.py:42-57)
+        rng = np.random.default_rng(cfg.numpy_rand_seed)
+        self.params = init_dlrm(rng, cfg.ln_bot, cfg.ln_top, device=self.device)
+        self.tables, offsets = init_embedding_tables(rng, cfg.ln_emb, cfg.m_spa,
+                                                     device=self.device)
+        self.table_offsets = offsets
+        self._offsets = torch.from_numpy(offsets).to(self.device)
+        scfg = step_lib.StepConfig(
+            interaction_op=cfg.arch_interaction_op,
+            interaction_itself=cfg.arch_interaction_itself,
+            loss_function=cfg.loss_function,
+            loss_weights=tuple(cfg.loss_weights_list),
+            loss_threshold=cfg.loss_threshold,
+            compute_dtype=cfg.compute_dtype,
+            optimizer=cfg.optimizer,
+        )
+        self._pooled = cfg.num_indices_per_lookup > 1 or not cfg.num_indices_per_lookup_fixed
+        self.train_step = step_lib.make_fulltable_train_step(scfg, pooled=self._pooled)
+        self.eval_step = step_lib.make_fulltable_eval_step(scfg, pooled=self._pooled)
+        # float32 learning rates, as cdlrm_tpu holds them (jnp.float32)
+        self._lr = float(np.float32(cfg.learning_rate))
+        self._lr_emb = float(np.float32(cfg.lr_embeds))
+        self.global_step = 0
+
+    def emb_tables(self) -> List[torch.Tensor]:
+        """The per-table views [n, D] of the flat tables, in table order
+        (cdlrm_tpu's ``params['emb']`` list)."""
+        ends = list(self.table_offsets[1:]) + [self.tables.shape[0]]
+        return [self.tables[a:b] for a, b in zip(self.table_offsets, ends)]
+
+    def _put(self, batch: Batch):
+        """x, ls_i, the mask (all False for single-index batches) and the
+        targets on the device (cdlrm_tpu ``_put``)."""
+        mask = batch.ls_mask
+        if mask is None:
+            mask = np.zeros(batch.ls_i.shape, dtype=bool)
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in (batch.x, batch.ls_i, mask, batch.y)
+        )
+
+    def train(self, max_steps: Optional[int] = None, log_fn=print) -> None:
+        """Train over the stream, epoch by epoch (cdlrm_tpu
+        fulltable.py:107-169): skip partial batches, stop at ``max_steps``,
+        and log the loss and accuracy since the last log every
+        ``print_freq`` batches of an epoch. Each step's loss and accuracy
+        stay on the device until the next log."""
+        cfg = self.cfg
+        b = cfg.mini_batch_size
+        pending: List[torch.Tensor] = []  # (loss_sum, correct) device scalars
+        loss_carry = corr_carry = n_carry = 0.0
+        t0 = time.perf_counter()
+
+        def flush():
+            vals = torch.stack(pending).cpu().tolist() if pending else []
+            n = len(pending) // 2 * b
+            pending.clear()
+            return sum(vals[0::2]), sum(vals[1::2]), n
+
+        for epoch in range(cfg.nepochs):
+            # the per-epoch shuffle protocol (data/criteo.py): the same epoch
+            # order as the cached trainer
+            kw = {"epoch": epoch} if getattr(self.dataset, "epoch_seeded_shuffle", False) else {}
+            for j, batch in enumerate(self.dataset.batches(**kw)):
+                if batch.x.shape[0] != b:
+                    continue
+                if max_steps is not None and self.global_step >= max_steps:
+                    return
+                x, ls_i, mask, tgt = self._put(batch)
+                self.params, self.tables, loss_sum, correct = self.train_step(
+                    self.params, self.tables, self._offsets, x, ls_i, mask, tgt,
+                    self._lr, self._lr_emb,
+                )
+                self.global_step += 1
+                pending += [loss_sum, correct]
+                if len(pending) >= 2 * 4096:
+                    # bound the live device scalars on huge print windows
+                    la, ca, na = flush()
+                    loss_carry += la
+                    corr_carry += ca
+                    n_carry += na
+                if j > 0 and j % cfg.print_freq == 0:
+                    loss_acc, corr_acc, n_acc = flush()
+                    loss_acc += loss_carry
+                    corr_acc += corr_carry
+                    n_acc += int(n_carry)
+                    loss_carry = corr_carry = n_carry = 0.0
+                    dt = time.perf_counter() - t0
+                    log_fn(
+                        f"Epoch {epoch}: {j}/{len(self.dataset)} "
+                        f"{1000 * dt / max(1, n_acc // b):.2f} ms/it, "
+                        f"loss {loss_acc / max(1, n_acc):.5f}, acc {corr_acc / max(1, n_acc):.5f}"
+                    )
+                    t0 = time.perf_counter()
+
+    def evaluate(self, max_batches: Optional[int] = None, log_fn=print):
+        """Eval over the test stream; returns (accuracy, auc). A short last
+        batch is padded to the eval batch size and its padding dropped."""
+        total, correct = 0, 0
+        auc = StreamingAUC()
+        tb = self.cfg.test_mini_batch_size
+        for i, batch in enumerate(self.test_dataset.batches()):
+            if max_batches is not None and i >= max_batches:
+                break
+            n = batch.x.shape[0]
+            batch = _pad_batch(batch, tb)
+            x, ls_i, mask, _ = self._put(batch)
+            scores = self.eval_step(self.params, self.tables, self._offsets, x, ls_i, mask)
+            scores = scores.cpu().numpy()[:n]
+            correct += accuracy_count(scores, batch.y[:n])
+            total += n
+            auc.update(scores, batch.y[:n])
+        acc = correct / max(1, total)
+        auc_v = auc.result()
+        log_fn(f"Test accuracy = {100.0 * acc:.4f}%  AUC = {auc_v:.5f}")
+        return acc, auc_v
+
+    def load_checkpoint(self, path: str) -> None:
+        """Load a cdlrm_tpu full-table checkpoint: ``fulltable_params.npz``
+        (``leaf_i`` in jax.tree_util.tree_flatten order of {"bot", "emb",
+        "top"}: every bottom (W, b), every table, every top (W, b)) and the
+        global step of ``meta.pkl``."""
+        if os.path.exists(os.path.join(path, "fulltable_acc.npz")):
+            raise ValueError(
+                f"{path!r} carries AdaGrad optimizer state; this trainer trains SGD only"
+            )
+        n_bot, n_top = len(self.params["bot"]), len(self.params["top"])
+        n_emb = len(self.table_offsets)
+        with np.load(os.path.join(path, "fulltable_params.npz")) as data:
+            leaves = [data[f"leaf_{i}"] for i in range(2 * (n_bot + n_top) + n_emb)]
+        loaded = params_from_jax(leaves, n_bot=n_bot, n_emb=n_emb, device=self.device)
+        for dst, src in zip(self.emb_tables(), loaded.pop("emb")):
+            if tuple(dst.shape) != tuple(src.shape):
+                raise ValueError(
+                    f"checkpoint table {tuple(src.shape)} != this config's {tuple(dst.shape)}"
+                )
+            dst.copy_(src)
+        self.params = loaded
+        with open(os.path.join(path, "meta.pkl"), "rb") as f:
+            self.global_step = pickle.load(f)["global_step"]
+
+    def close(self) -> None:
+        """Nothing to release: the trainer starts no thread."""

@@ -1,11 +1,15 @@
-"""Device steps of the cached path on one device, the counterpart of
-cdlrm_tpu/train/step.py: the cached train step (plain and packed dedup
-wires, SGD), the cached eval step, the refill step, and the wires they read.
+"""Device steps on one device, the counterpart of cdlrm_tpu/train/step.py:
+the cached train step (the plain wire and the packed and unpacked dedup
+wires, SGD), scan blocks of it with the block-coalesced update, the cached
+eval step, the refill step, the full-table train and eval steps, and the
+wires they read.
 
 Each step is a plain function over tensors on one device. PyTorch runs
-eagerly, so there is no jit; the cache is updated in place where cdlrm_tpu
-donates it. On a CUDA device the row moves run the hand-written kernels
-(ops/lookup.py, ops/scatter.py); on the CPU their plain versions.
+eagerly, so there is no jit and no ``lax.scan``: a scan block is a loop of
+single steps (with the block-coalesced update, one flush after it), and the
+cache is updated in place where cdlrm_tpu donates it. On a CUDA device the
+row moves run the hand-written kernels (ops/lookup.py, ops/scatter.py); on
+the CPU their plain versions.
 
 cdlrm_tpu's ``use_pallas_lookup``, ``use_pallas_scatter`` and
 ``pallas_interpret`` choose between XLA ops and Pallas kernels on the TPU;
@@ -15,6 +19,7 @@ such switches and ignores those config fields.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -22,6 +27,8 @@ import torch
 
 from cdlrm_tpu.cache.geometry import CacheGeometry
 from cdlrm_tpu_torch.models.dlrm import compute_loss, dlrm_forward
+from cdlrm_tpu_torch.models.embedding import embedding_forward, global_rows
+from cdlrm_tpu_torch.models.embedding import pool as _pool
 from cdlrm_tpu_torch.ops.lookup import gather_rows, index_add_rows
 from cdlrm_tpu_torch.ops.scatter import scatter_add_rows, scatter_set_rows
 
@@ -43,13 +50,18 @@ class StepConfig(NamedTuple):
     # table-local ids (pack_slots), unpacked on the device
     wire_pack: bool = False
     wire_bits: int = 24  # == WIRE_MAX_BITS
-    # packed dedup wire (host_cache.probe_dedup): per lookup a bit-packed
-    # table-local first-seen rank into a per-step unique-slot list; the step
+    # dedup wire: per lookup a table-local first-seen rank into a per-step
+    # unique-slot list, bit-packed with wire_pack (host_cache.probe_dedup),
+    # else raw int32 ranks and global rows (probe_dedup_raw); the step
     # gathers each unique row once and scatters one summed update per row
     dedup: bool = False
     inv_bits: int = 13  # rank wire width: >= wire_width(lookups_per_table-1)
     uniq_bits: int = 24  # unique-list wire width (== wire_bits)
     optimizer: str = "sgd"
+    # block-coalesced update (scan blocks on the unpacked dedup wire):
+    # per-lookup gradients accumulate in a pending buffer in block-union row
+    # space and the cache takes one row add per block (make_cached_train_step)
+    block_coalesce: bool = False
 
     @property
     def cdtype(self) -> Optional[torch.dtype]:
@@ -154,13 +166,19 @@ def _decode_dedup(
     return uniq_slots.to(torch.int32), ginv.reshape(-1).to(torch.int32)
 
 
-def _pool(rows, ls_mask, t_count: int, b_loc: int, d: int, pooled_width: int):
-    """Looked-up rows [T*B(*P), D] -> per-table bag outputs [T, B, D]: a
-    masked sum over P for multi-hot bags."""
-    if pooled_width > 0:
-        r = rows.reshape(t_count, b_loc, pooled_width, d)
-        return torch.sum(r * ls_mask[..., None].to(r.dtype), dim=2)
-    return rows.reshape(t_count, b_loc, d)
+def _decode_dedup_raw(
+    inv: torch.Tensor, uniq_slots: torch.Tensor, uniq_counts: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode the unpacked dedup wire (cdlrm_tpu _decode_dedup_raw,
+    step.py:304, default layout; host_cache.probe_dedup_raw): ``inv`` int32
+    [T, n] table-local first-seen ranks (-1 = masked), ``uniq_slots`` int32
+    [Ub] global cache rows, position 0 the reserved trash rank, then each
+    table's unique rows, then trash-row padding. Returns (uniq_slots, ginv
+    [T*n] int32 ranks into uniq_slots; masked positions -> 0)."""
+    cum = torch.cumsum(uniq_counts.to(torch.int64), 0)
+    base = torch.cat([cum.new_zeros(1), cum[:-1]])[:, None]
+    ginv = torch.where(inv < 0, 0, inv + 1 + base)
+    return uniq_slots, ginv.reshape(-1).to(torch.int32)
 
 
 class _TableOffsets:
@@ -188,66 +206,99 @@ def _stage_aux(cache, aux_slots, aux_rows, trash_row: int) -> None:
     scatter_set_rows(cache, aux_slots, aux_rows, nv_aux)
 
 
+def _value_and_grad(cfg: StepConfig, pooled_width: int, params, leaf, expand, x,
+                    ls_mask, targets, t_count: int, b_loc: int, d: int):
+    """Loss, probabilities, and the gradients with respect to the dense
+    parameters and ``leaf`` (jax.value_and_grad over (params, rows),
+    cdlrm_tpu step.py:675-677). ``expand`` maps the leaf to the per-lookup
+    rows [T*B(*P), D]."""
+    flat = [p.detach().requires_grad_() for key in ("bot", "top")
+            for pair in params[key] for p in pair]
+    it = iter(flat)
+    live = {key: [(next(it), next(it)) for _ in params[key]] for key in ("bot", "top")}
+    ly = _pool(expand(leaf), ls_mask, t_count, b_loc, d, pooled_width)
+    p = dlrm_forward(
+        live, x, ly, cfg.interaction_op, cfg.interaction_itself,
+        cfg.loss_threshold, cfg.cdtype,
+    )
+    loss = compute_loss(p, targets, cfg.loss_function, cfg.loss_weights)
+    grads = torch.autograd.grad(loss, flat + [leaf])
+    return loss.detach(), p.detach(), grads[:-1], grads[-1]
+
+
+def _finish(params, dflat, p, loss, targets, lr, b_loc: int):
+    """Dense SGD and the step's metrics (cdlrm_tpu ``finish``,
+    step.py:613-628, without the pmean)."""
+    it = iter(dflat)
+    params = {
+        key: [(w - lr * next(it), b - lr * next(it)) for w, b in params[key]]
+        for key in ("bot", "top")
+    }
+    # torch.round, like jnp.round, rounds half to even
+    correct = (torch.round(p) == targets).to(torch.float32).sum()
+    return params, loss * b_loc, correct
+
+
+def _check_sgd(optimizer: str) -> None:
+    if optimizer != "sgd":
+        raise NotImplementedError(
+            f"optimizer={optimizer!r}: the port trains SGD only; AdaGrad "
+            "is ROADMAP.md queue 1"
+        )
+
+
 def make_cached_train_step(
-    geo: CacheGeometry, cfg: StepConfig, pooled_width: int = 0
+    geo: CacheGeometry, cfg: StepConfig, pooled_width: int = 0, block: int = 1,
 ) -> Callable:
     """The one-device cached train step (cdlrm_tpu make_cached_train_step,
-    step.py:524, with ``block=1``, no hot tier, SGD).
+    step.py:524, no hot tier, SGD).
 
     Plain wire (``cfg.dedup`` off, ``body`` step.py:632)::
 
         step(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets,
              lr, lr_embeds) -> (params, cache, loss_sum, correct)
 
-    Packed dedup wire (``body_dedup`` step.py:711)::
+    Dedup wire (``body_dedup`` step.py:711), packed (``cfg.wire_pack``: a
+    bitstream of ranks and of table-local unique ids) or unpacked (int32
+    ranks and global unique rows)::
 
         step(params, cache, x, inv_wire, ls_mask, uniq_wire, uniq_counts,
              aux_slots, aux_rows, targets, lr, lr_embeds)
              -> (params, cache, loss_sum, correct)
 
+    ``block`` > 1 is a scan block (cdlrm_tpu's ``lax.scan`` over ``block``
+    steps): the per-batch inputs come flat, batch-major, and the step loops
+    over them; ``loss_sum`` and ``correct`` come back stacked [block]::
+
+        step(params, cache, *per_batch_inputs, lr, lr_embeds)
+             -> (params, cache, loss_sum [block], correct [block])
+
+    With ``cfg.block_coalesce`` (unpacked dedup wire, ``body_coalesce``
+    step.py:841 and the flush :926-970) each batch's inputs carry its
+    block-rank row ``uniq_blk`` after ``uniq_counts``
+    (``CachedDlrmTrainer.interleave_block_inputs``), and the block's sorted
+    union ``blk_slots`` [Pb] (trash-padded) and ``blk_counts`` [1] (its
+    valid length) follow them::
+
+        step(params, cache, *per_batch_inputs, blk_slots, blk_counts, lr,
+             lr_embeds) -> (params, cache, loss_sum [block], correct [block])
+
     ``params`` comes back as a new dict (dense SGD); the cache is updated in
     place, where cdlrm_tpu donates it; ``loss_sum`` and ``correct`` are
-    device scalars, read by the caller when it needs them. One replica means
+    device tensors, read by the caller when it needs them. One replica means
     no dense-grad mean (``_sync_dense_grads`` is the identity) and no
     touched-row mask (cdlrm_tpu's ``track_touched`` is off on one replica).
     ``lr`` and ``lr_embeds`` are Python floats already rounded to float32."""
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer={cfg.optimizer!r}: the port trains SGD only; AdaGrad "
-            "is ROADMAP.md queue 1"
-        )
-    cdtype = cfg.cdtype
+    _check_sgd(cfg.optimizer)
+    if cfg.block_coalesce:
+        if block <= 1:
+            raise ValueError("block_coalesce requires a scan block (block > 1)")
+        if not cfg.dedup or cfg.wire_pack:
+            raise ValueError("block_coalesce requires the UNPACKED dedup wire")
     trash = geo.trash_row
     offsets = _TableOffsets(geo)
 
-    def value_and_grad(params, leaf, expand, x, ls_mask, targets, t_count, b_loc, d):
-        """Loss, probabilities, and the gradients with respect to the dense
-        parameters and ``leaf`` (jax.value_and_grad over (params, rows),
-        step.py:675-677). ``expand`` maps the leaf to the per-lookup rows."""
-        flat = [p.detach().requires_grad_() for key in ("bot", "top")
-                for pair in params[key] for p in pair]
-        it = iter(flat)
-        live = {key: [(next(it), next(it)) for _ in params[key]] for key in ("bot", "top")}
-        ly = _pool(expand(leaf), ls_mask, t_count, b_loc, d, pooled_width)
-        p = dlrm_forward(
-            live, x, ly, cfg.interaction_op, cfg.interaction_itself,
-            cfg.loss_threshold, cdtype,
-        )
-        loss = compute_loss(p, targets, cfg.loss_function, cfg.loss_weights)
-        grads = torch.autograd.grad(loss, flat + [leaf])
-        return loss.detach(), p.detach(), grads[:-1], grads[-1]
-
-    def finish(params, dflat, p, loss, targets, lr, b_loc):
-        """Dense SGD and the step's metrics (cdlrm_tpu ``finish``,
-        step.py:613-628, without the pmean)."""
-        it = iter(dflat)
-        params = {
-            key: [(w - lr * next(it), b - lr * next(it)) for w, b in params[key]]
-            for key in ("bot", "top")
-        }
-        # torch.round, like jnp.round, rounds half to even
-        correct = (torch.round(p) == targets).to(torch.float32).sum()
-        return params, loss * b_loc, correct
+    value_and_grad = functools.partial(_value_and_grad, cfg, pooled_width)
 
     def body(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets,
              lr, lr_embeds):
@@ -276,8 +327,16 @@ def make_cached_train_step(
             ).to(torch.int32)
             upd_slots = torch.where(flat_slots == trash, spread, flat_slots)
         index_add_rows(cache, upd_slots, drows.contiguous(), alpha=-lr_embeds)
-        params, loss_sum, correct = finish(params, dflat, p, loss, targets, lr, b_loc)
+        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
         return params, cache, loss_sum, correct
+
+    def decode(inv_wire, uniq_wire, uniq_counts, n_lk):
+        if cfg.wire_pack:
+            return _decode_dedup(
+                inv_wire, uniq_wire, uniq_counts, offsets(inv_wire.device), trash,
+                cfg.inv_bits, cfg.uniq_bits, n_lk,
+            )
+        return _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts)
 
     def body_dedup(params, cache, x, inv_wire, ls_mask, uniq_wire, uniq_counts,
                    aux_slots, aux_rows, targets, lr, lr_embeds):
@@ -287,10 +346,7 @@ def make_cached_train_step(
         t_count = inv_wire.shape[0]
         d = cache.shape[-1]
         _stage_aux(cache, aux_slots, aux_rows, trash)
-        uniq_slots, ginv = _decode_dedup(
-            inv_wire, uniq_wire, uniq_counts, offsets(inv_wire.device), trash,
-            cfg.inv_bits, cfg.uniq_bits, n_lk,
-        )
+        uniq_slots, ginv = decode(inv_wire, uniq_wire, uniq_counts, n_lk)
         rows_u = gather_rows(cache, uniq_slots).requires_grad_()  # [Ub, D]
         # the expand's backward (gather_rows' index_add_rows) segment-sums
         # duplicate-lookup gradients into [Ub, D], as the take's transpose
@@ -304,10 +360,87 @@ def make_cached_train_step(
         # exactly zero; the count stays on the device
         nv = uniq_counts.sum() + 1
         scatter_add_rows(cache, uniq_slots, -lr_embeds * d_rows_u, nv)
-        params, loss_sum, correct = finish(params, dflat, p, loss, targets, lr, b_loc)
+        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
         return params, cache, loss_sum, correct
 
-    return body_dedup if cfg.dedup else body
+    def body_coalesce(params, cache, pend, x, inv_wire, ls_mask, uniq_wire,
+                      uniq_counts, uniq_blk, aux_slots, aux_rows, targets, lr,
+                      lr_embeds):
+        """One step of a coalesced block: the forward reads the effective
+        weight w_eff = cache - lr * pending, the per-lookup gradients go into
+        the pending buffer, and the cache is written only by the aux staging;
+        the block's flush applies the pending rows."""
+        b_loc = targets.shape[0]
+        targets = targets.to(torch.float32)
+        t_count = inv_wire.shape[0]
+        d = cache.shape[-1]
+        p_trash = pend.shape[0] - 1  # host contract: the last pending row
+        _stage_aux(cache, aux_slots, aux_rows, trash)
+        uniq_slots, ginv = _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts)
+        rows_u = gather_rows(cache, uniq_slots)  # [Ub, D]
+        # the block's not yet flushed updates live in pending; pad, aux and
+        # trash ranks read the pending trash row, which stays exactly +0.0
+        w_eff = rows_u - lr_embeds * gather_rows(pend, uniq_blk)
+        # the leaf is the expanded [N, D] rows, as cdlrm_tpu differentiates
+        # (step.py:883-887): the per-lookup gradient goes straight into
+        # pending, with no [Ub, D] segment sum
+        rows_exp = gather_rows(w_eff, ginv).requires_grad_()
+        loss, p, dflat, drows = value_and_grad(
+            params, rows_exp, lambda r: r, x, ls_mask, targets, t_count, b_loc, d
+        )
+        blk_rank = uniq_blk[ginv.long()]  # [N] per-lookup block ranks
+        # aux, trash and masked lanes carry rank p_trash: zero their
+        # gradients so the pending trash row stays +0.0. Every such lane's
+        # add lands on that one row
+        d_eff = drows * (blk_rank != p_trash)[:, None].to(drows.dtype)
+        index_add_rows(pend, blk_rank, d_eff)
+        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
+        return params, cache, pend, loss_sum, correct
+
+    if cfg.block_coalesce:
+        n_in = 9  # the dedup wire's 8 per-batch inputs + uniq_blk
+
+        def coalesced_block(params, cache, *rest):
+            *flat, blk_slots, blk_counts, lr, lr_embeds = rest
+            if len(flat) != block * n_in:
+                raise ValueError(f"{len(flat)} block inputs, want {block} x {n_in}")
+            pend = torch.zeros((blk_slots.shape[0], cache.shape[1]), dtype=torch.float32,
+                               device=cache.device)
+            losses, corrs = [], []
+            for j in range(block):
+                params, cache, pend, loss_sum, correct = body_coalesce(
+                    params, cache, pend, *flat[j * n_in: (j + 1) * n_in], lr, lr_embeds
+                )
+                losses.append(loss_sum)
+                corrs.append(correct)
+            # the flush: one row add of the sorted union's distinct prefix
+            # (cdlrm_tpu's Pallas branch, step.py:953-961). Rows past it are
+            # never touched, where cdlrm_tpu's XLA form adds -0.0 to spread
+            # rows (:962-969): value-identical
+            scatter_add_rows(cache, blk_slots, -lr_embeds * pend,
+                             blk_counts[:1].to(torch.int64))
+            return params, cache, torch.stack(losses), torch.stack(corrs)
+
+        return coalesced_block
+    single = body_dedup if cfg.dedup else body
+    if block == 1:
+        return single
+    n_in = 8 if cfg.dedup else 6
+
+    def scanned(params, cache, *rest):
+        *flat, lr, lr_embeds = rest
+        if len(flat) != block * n_in:
+            raise ValueError(f"{len(flat)} block inputs, want {block} x {n_in}")
+        losses, corrs = [], []
+        for j in range(block):
+            params, cache, loss_sum, correct = single(
+                params, cache, *flat[j * n_in: (j + 1) * n_in], lr, lr_embeds
+            )
+            losses.append(loss_sum)
+            corrs.append(correct)
+        return params, cache, torch.stack(losses), torch.stack(corrs)
+
+    return scanned
 
 
 def make_cached_eval_step(
@@ -370,5 +503,70 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
         nv_ins = (insert_slots != trash_row).sum()
         scatter_set_rows(cache, insert_slots, insert_rows, nv_ins)
         return cache, evicted
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# full-table (uncached) steps: small configs, tests, and the oracle
+# --------------------------------------------------------------------------
+
+
+def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable:
+    """Train step with the full embedding tables on the device (cdlrm_tpu
+    make_fulltable_train_step, step.py:1417, one device, SGD)::
+
+        step(params, tables, offsets, x, ls_i, ls_mask, targets, lr,
+             lr_embeds) -> (params, tables, loss_sum, correct)
+
+    ``tables`` is the flat ``[sum(n), D]`` float32 tensor of
+    models/embedding.py, updated in place; ``offsets`` its int64 [T] table
+    starts on the device; ``ls_i`` table-local ids [T, B] (or [T, B, P] with
+    ``ls_mask`` when ``pooled``). cdlrm_tpu differentiates every table
+    whole, a dense ``[n, D]`` gradient per table, and applies ``w - lr * g``
+    to every row. The step here gathers each distinct row of the batch once
+    (the leaf), expands it to the lookups with ``gather_rows`` (whose
+    backward, ``index_add_rows``, sums each row's lookup gradients in lookup
+    order, as the dense gradient's scatter does), and adds ``-lr * g`` to
+    those rows only with ``scatter_add_rows``: the same one subtraction of a
+    summed gradient per row, and rows the batch does not touch stay as they
+    are, as ``w - lr * 0`` leaves them."""
+    _check_sgd(cfg.optimizer)
+
+    def step(params, tables, offsets, x, ls_i, ls_mask, targets, lr, lr_embeds):
+        t_count, b_loc = ls_i.shape[:2]
+        # bags are pooled where the lookups have a P axis, as cdlrm_tpu's
+        # embedding_forward decides by the index rank
+        pooled_width = ls_i.shape[2] if pooled and ls_i.dim() == 3 else 0
+        targets = targets.to(torch.float32)
+        # torch.unique waits for the device (its output size is data
+        # dependent): acceptable for the full-table trainer, an oracle and a
+        # small-config path, not for the cached hot loop
+        uniq, inv = torch.unique(global_rows(ls_i, offsets), return_inverse=True)
+        inv = inv.to(torch.int32)
+        rows_u = gather_rows(tables, uniq).requires_grad_()  # [U, D]
+        loss, p, dflat, d_rows_u = _value_and_grad(
+            cfg, pooled_width, params, rows_u, lambda r: gather_rows(r, inv), x,
+            ls_mask, targets, t_count, b_loc, tables.shape[1],
+        )
+        nv = torch.full((1,), uniq.shape[0], dtype=torch.int64, device=tables.device)
+        scatter_add_rows(tables, uniq, -lr_embeds * d_rows_u, nv)
+        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
+        return params, tables, loss_sum, correct
+
+    return step
+
+
+def make_fulltable_eval_step(cfg: StepConfig, pooled: bool = False) -> Callable:
+    """Forward-only full-table step (cdlrm_tpu make_fulltable_eval_step,
+    step.py:1504): ``step(params, tables, offsets, x, ls_i, ls_mask) ->
+    scores [B, 1]``."""
+
+    def step(params, tables, offsets, x, ls_i, ls_mask):
+        ly = embedding_forward(tables, offsets, ls_i, ls_mask if pooled else None)
+        return dlrm_forward(
+            params, x, ly, cfg.interaction_op, cfg.interaction_itself,
+            cfg.loss_threshold, cfg.cdtype,
+        )
 
     return step

@@ -1,6 +1,5 @@
 """Cached DLRM training and serving on one device, the counterpart of
-cdlrm_tpu/train/trainer.py::CachedDlrmTrainer at ``world_size=1`` and
-``scan_steps=1``.
+cdlrm_tpu/train/trainer.py::CachedDlrmTrainer at ``world_size=1``.
 
 The host side is cdlrm_tpu's, shared: masters, the cache controller
 (occupancy, probe, insert plan), the lookahead prefetcher and its shadow
@@ -12,9 +11,11 @@ seed give the same masters, weights, probes, wire bytes and window plans as
 cdlrm_tpu, so the two train the same trajectory, and a cdlrm_tpu checkpoint
 serves here unchanged.
 
-Ported: construction, ``train`` (SGD, the plain and packed dedup wires
-chosen per window, the refill prestager), ``evaluate`` (the pipelined
-``--inference-only`` path), ``refill`` of one insert plan,
+Ported: construction, ``train`` (SGD; the plain wire and the packed and
+unpacked dedup wires, chosen per window; scan blocks of ``scan_steps``
+steps, capped at window and cadence boundaries, with the block-coalesced
+update on the unpacked dedup wire; the refill prestager), ``evaluate`` (the
+pipelined ``--inference-only`` path), ``refill`` of one insert plan,
 ``load_checkpoint`` and ``close``. What is not, ``_check_slice`` refuses
 (ROADMAP.md queue 1 names where each comes).
 
@@ -193,11 +194,9 @@ class _WindowStager(threading.Thread):
             pass
 
 
-def _check_slice(cfg: Config, wire_pack: bool) -> None:
+def _check_slice(cfg: Config) -> None:
     """Refuse the config fields this port does not implement yet, rather
-    than ignore them (ROADMAP.md queue 1 names where each comes).
-    ``wire_pack``: whether the slot wire is bit-packed (``pack_wire`` and a
-    geometry whose local slots fit the packed width)."""
+    than ignore them (ROADMAP.md queue 1 names where each comes)."""
     unsupported = {
         "world_size > 1 (multi-GPU)": cfg.world_size > 1,
         "coordinator_address (multi-host)": bool(cfg.coordinator_address),
@@ -205,15 +204,11 @@ def _check_slice(cfg: Config, wire_pack: bool) -> None:
         "qr_flag (QR tables, full-table path)": cfg.qr_flag,
         "wire_rows_bf16": cfg.wire_rows_bf16,
         "wire_x_fp8": cfg.wire_x_fp8,
-        "use_cache=False (full-table path)": not cfg.use_cache,
         "optimizer other than sgd (AdaGrad)": cfg.optimizer != "sgd",
-        "scan_steps > 1 (scan blocks)": cfg.scan_steps > 1,
         "hot_tier_rows > 0 (hot tier)": cfg.hot_tier_rows > 0,
         "sorted_dedup_wire": cfg.sorted_dedup_wire,
         "save_model (checkpoint save)": bool(cfg.save_model),
         "checkpoint_freq > 0 (checkpoint save)": cfg.checkpoint_freq > 0,
-        "the unpacked dedup wire (pack_wire=False with dedup_lookups on|auto)":
-            not wire_pack and cfg.dedup_lookups != "off",
         "enable_profiling": cfg.enable_profiling,
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -259,7 +254,7 @@ class CachedDlrmTrainer:
         rows_per_table = self.geo.ways * self.geo.sets + self.geo.aux_capacity
         self._wire_bits = step_lib.wire_width(int(rows_per_table.max()) - 1)
         self._wire_pack = bool(cfg.pack_wire and self._wire_bits <= step_lib.WIRE_MAX_BITS)
-        _check_slice(cfg, self._wire_pack)
+        _check_slice(cfg)
 
         # one generator, drawn in cdlrm_tpu's order: masters, then the dense
         # weights — the same seed gives both packages the same values
@@ -284,11 +279,32 @@ class CachedDlrmTrainer:
         )
 
         # wire choice per window (cdlrm_tpu trainer.py:446-460): 'on' always
-        # takes the packed dedup wire, 'auto' decides per window from the
-        # shadow stats (_apply_window_stats)
+        # takes the dedup wire (packed or unpacked as the slot wire is),
+        # 'auto' decides per window from the shadow stats
+        # (_apply_window_stats)
         self._dedup_auto = cfg.dedup_lookups == "auto"
         self._dedup = cfg.dedup_lookups == "on"
         self._inv_bits = step_lib.wire_width(b_loc * max(1, pooled_width) - 1)
+        # scan blocks of scan_steps steps (cdlrm_tpu trainer.py:531-539);
+        # block_coalesced_update is resolved to a bool by Config.finalize
+        self._scan_block = max(1, cfg.scan_steps)
+        self._block_coalesce = bool(cfg.block_coalesced_update)
+        # staging buckets: the worst cases, replaced per window by the
+        # negotiated ones whenever scan blocks run (_apply_window_stats):
+        # a block's batches must share the unique bucket, against which
+        # _build_block_union aligns each step's rank row
+        self._aux_bucket = (
+            cfg.aux_bucket if cfg.aux_bucket > 0
+            else len(cfg.ln_emb) * self.geo.aux_capacity
+        )
+        self._aux_bucket_window: Optional[int] = None
+        self._dedup_bucket = pow2_bucket(
+            1 + len(cfg.ln_emb) * b_loc * max(1, pooled_width), min_size=1024
+        )
+        self._dedup_bucket_window: Optional[int] = None
+        # shadow window stats: the negotiated buckets of scan blocks and the
+        # auto-dedup decision read them (cdlrm_tpu trainer.py:675-678)
+        self._need_stats = self._scan_block > 1 or self._dedup_auto
         scfg = step_lib.StepConfig(
             interaction_op=cfg.arch_interaction_op,
             interaction_itself=cfg.arch_interaction_itself,
@@ -304,7 +320,7 @@ class CachedDlrmTrainer:
             optimizer=cfg.optimizer,
         )
         self.step_cfg = scfg
-        self._step_cache: dict = {}  # dedup -> train step (_get_step)
+        self._step_cache: dict = {}  # (size, dedup, coalesce) -> step (_get_step)
         # the eval wire is always the plain slot wire (cdlrm_tpu
         # trainer.py:475-478): no dedup variant is needed to serve
         self.eval_step = step_lib.make_cached_eval_step(self.geo, scfg, self.pooled_width)
@@ -314,7 +330,13 @@ class CachedDlrmTrainer:
             if self._wire_pack else self.controller.probe
         )
         # single-host staging buckets, each a running maximum (_pack_aux)
-        self._bucket_run_max = {"train": 0, "eval": 0, "dedup": 0}
+        self._bucket_run_max = {"train": 0, "eval": 0, "dedup": 0, "blk": 0}
+        # block-union scratch, built on the first coalesced block
+        # (_build_block_union): the static real-row mask, its word bitmap
+        # for the native union, and the slot -> block rank map
+        self._blk_real_mask = None
+        self._blk_real_bits = None
+        self._blk_rank_map = None
         self._dummy_masks: dict = {}
 
         # host pipeline (cdlrm_tpu trainer.py:585-606): the eviction thread
@@ -462,23 +484,41 @@ class CachedDlrmTrainer:
 
     def _apply_window_stats(self, window: WindowData) -> None:
         """Adopt the window's shadow-computed statistics (cdlrm_tpu
-        trainer.py:971-1008). With ``dedup_lookups='auto'`` the window takes
-        the packed dedup wire when its unique lookups are at most half of all
-        lookups (cdlrm_tpu's packed-wire threshold). The wire changes only
-        here, before the pipeline probes the window's first batch. The
-        negotiated staging buckets that cdlrm_tpu also adopts here are read
-        only by scan blocks and multi-host runs, which the port refuses."""
+        trainer.py:971-1008): the negotiated staging buckets that scan blocks
+        read (the window's worst per-batch miss and unique counts, as powers
+        of two, capped at the worst cases), and with
+        ``dedup_lookups='auto'`` the wire: the dedup wire when the window's
+        unique lookups are at most 0.5 of all lookups on the packed wire, or
+        0.75 on the unpacked one, whose device step skips the wire decode
+        (cdlrm_tpu's thresholds). The wire changes only here, before the
+        pipeline probes the window's first batch."""
         stats = window.stats
-        if stats is not None and self._dedup_auto and stats.total_lookups > 0:
-            self._dedup = stats.total_uniq <= 0.5 * stats.total_lookups
+        if stats is None:
+            return
+        self._aux_bucket_window = min(pow2_bucket(stats.worst_miss), self._aux_bucket)
+        if stats.worst_uniq > 0:
+            self._dedup_bucket_window = min(
+                pow2_bucket(1 + stats.worst_uniq, min_size=1024), self._dedup_bucket
+            )
+        if self._dedup_auto and stats.total_lookups > 0:
+            thresh = 0.5 if self._wire_pack else 0.75
+            self._dedup = stats.total_uniq <= thresh * stats.total_lookups
 
     # ------------------------------------------------------------------- batch
     def _pack_aux(self, aux_slots_in: np.ndarray, aux_rows_in: np.ndarray, key: str):
         """Pad one batch's miss rows to a power-of-two bucket; padding targets
-        the trash row. The bucket is monotone (a running maximum per
-        ``key``, 'train' or 'eval'), like cdlrm_tpu's single-host staging."""
+        the trash row. Training batches of scan blocks take the window's
+        negotiated bucket, so a block's batches share it; otherwise the
+        bucket is monotone (a running maximum per ``key``, 'train' or
+        'eval'), like cdlrm_tpu's single-host staging (trainer.py:1045)."""
         n = aux_slots_in.shape[0]
-        k = self._bucket_run_max[key] = max(self._bucket_run_max[key], pow2_bucket(n))
+        if self._scan_block > 1 and key == "train":
+            k = (self._aux_bucket_window if self._aux_bucket_window is not None
+                 else self._aux_bucket)
+            if n > k:
+                raise ValueError(f"{n} packed miss rows exceed aux bucket {k}; raise --aux-bucket")
+        else:
+            k = self._bucket_run_max[key] = max(self._bucket_run_max[key], pow2_bucket(n))
         aux_slots = np.full(k, self.geo.trash_row, dtype=np.int32)
         aux_rows = np.zeros((k, self.geo.dim), dtype=np.float32)
         aux_slots[:n] = aux_slots_in
@@ -550,31 +590,48 @@ class CachedDlrmTrainer:
         return self._stage_batch(batch, (pr.slots,), aux, train=True), stats, False, None
 
     def _assemble_dedup(self, batch: Batch):
-        """Training batch in the packed dedup wire (cdlrm_tpu
-        trainer.py:1101): bit-packed first-seen ranks per lookup, and the
-        unique-slot list as table-local ids packed after a reserved trash
-        rank at position 0, padded with the sentinel to a power-of-two
-        bucket."""
-        dr = self._probe(batch, functools.partial(
-            self.controller.probe_dedup, inv_bits=self._inv_bits
-        ))
+        """Training batch in the dedup wire (cdlrm_tpu trainer.py:1101).
+        Packed (``pack_wire``): bit-packed first-seen ranks per lookup, and
+        the unique-slot list as table-local ids packed after a reserved
+        trash rank at position 0, padded with the sentinel. Unpacked: int32
+        ranks (-1 masked) and int32 global rows ``[trash, uniq..., trash-pad]``
+        (``probe_dedup_raw``). The unique bucket is a power of two: the
+        window's negotiated one under scan blocks, else a running maximum.
+        With the block-coalesced update the host unique list rides along
+        for _build_block_union."""
+        if self._wire_pack:
+            probe = functools.partial(self.controller.probe_dedup, inv_bits=self._inv_bits)
+        else:
+            probe = self.controller.probe_dedup_raw
+        dr = self._probe(batch, probe)
         stats = _ProbeStats(batch.ls_i.shape[0])
         stats.add(dr.hit_counts, dr.num_lookups)
         u, cnt = dr.uniq, dr.uniq_counts
-        # monotone like _pack_aux; +1 for the reserved trash rank
-        ub = pow2_bucket(1 + u.size, min_size=1024)
-        ub = self._bucket_run_max["dedup"] = max(self._bucket_run_max["dedup"], ub)
-        bits = self._wire_bits
-        ubytes = step_lib.wire_bytes(ub, bits)
-        vals = np.full(ub, -1, np.int64)  # -1 -> sentinel (trash/pad)
-        vals[1: 1 + u.size] = u.astype(np.int64) - np.repeat(self.geo.table_offsets, cnt)
-        if native.available():
-            uniq_wire = native.pack_bits(vals, bits, ubytes)
+        # +1 for the reserved trash rank
+        if self._scan_block > 1:
+            ub = (self._dedup_bucket_window if self._dedup_bucket_window is not None
+                  else self._dedup_bucket)
         else:
-            uniq_wire = step_lib.pack_slots(vals[None, :], np.zeros(1, np.int64), -1, bits)[0]
+            ub = pow2_bucket(1 + u.size, min_size=1024)
+            ub = self._bucket_run_max["dedup"] = max(self._bucket_run_max["dedup"], ub)
+        if u.size + 1 > ub:
+            raise ValueError(f"{u.size + 1} unique slots exceed dedup bucket {ub}")
+        if self._wire_pack:
+            bits = self._wire_bits
+            ubytes = step_lib.wire_bytes(ub, bits)
+            vals = np.full(ub, -1, np.int64)  # -1 -> sentinel (trash/pad)
+            vals[1: 1 + u.size] = u.astype(np.int64) - np.repeat(self.geo.table_offsets, cnt)
+            if native.available():
+                uniq_wire = native.pack_bits(vals, bits, ubytes)
+            else:
+                uniq_wire = step_lib.pack_slots(vals[None, :], np.zeros(1, np.int64), -1, bits)[0]
+        else:
+            uniq_wire = np.full(ub, self.geo.trash_row, np.int32)
+            uniq_wire[1: 1 + u.size] = u
         aux = self._pack_aux(dr.aux_slots, dr.aux_rows, "train")
         wire = (dr.inv_wire, uniq_wire, cnt.astype(np.int32))
-        return self._stage_batch(batch, wire, aux, train=True), stats, True, None
+        blockinfo = (u, cnt, ub) if self._block_coalesce and not self._wire_pack else None
+        return self._stage_batch(batch, wire, aux, train=True), stats, True, blockinfo
 
     # ------------------------------------------------------------------- train
     def _start_pipeline(self) -> None:
@@ -602,9 +659,10 @@ class CachedDlrmTrainer:
             start_epoch=epoch0,
             skip_batches=(j0 // cfg.lookahead) * cfg.lookahead,
             shadow=self.controller.clone(),
-            # the auto-dedup decision reads the window's unique counts
+            # the window's miss and unique counts (_apply_window_stats)
             stats_spec=(
-                (1, cfg.local_batch_size, True, 0) if self._dedup_auto else None
+                (1, cfg.local_batch_size, self._dedup or self._dedup_auto, 0)
+                if self._need_stats else None
             ),
             skip_first_plan=(j0 % cfg.lookahead != 0),
         )
@@ -621,21 +679,117 @@ class CachedDlrmTrainer:
         self._stream_done = False
         self._pipeline_started = True
 
-    def _get_step(self, dedup: bool):
-        """The train step for the given wire, built once per wire."""
-        fn = self._step_cache.get(dedup)
+    def _get_step(self, size: int, dedup: bool, coalesce: bool = False):
+        """The train step for ``size`` consecutive batches (1: a single
+        step; more: a scan block) in the given wire, with or without the
+        block-coalesced update; built once per (size, dedup, coalesce), as
+        cdlrm_tpu's compiled steps are (trainer.py:1575)."""
+        key = (size, dedup, coalesce)
+        fn = self._step_cache.get(key)
         if fn is None:
-            fn = self._step_cache[dedup] = step_lib.make_cached_train_step(
-                self.geo, self.step_cfg._replace(dedup=dedup), self.pooled_width
+            fn = self._step_cache[key] = step_lib.make_cached_train_step(
+                self.geo, self.step_cfg._replace(dedup=dedup, block_coalesce=coalesce),
+                self.pooled_width, block=size,
             )
         return fn
 
+    @staticmethod
+    def interleave_block_inputs(inputs_list, ranks) -> list:
+        """Coalesced block input order (cdlrm_tpu trainer.py:1597): each
+        step's dedup inputs with its block-rank row spliced in after
+        ``uniq_counts``, the order the coalesced step reads."""
+        flat = []
+        for i, inputs in enumerate(inputs_list):
+            flat.extend(inputs[:5])
+            flat.append(ranks[i])
+            flat.extend(inputs[5:])
+        return flat
+
+    def _build_block_union(self, infos):
+        """Host pass of the block-coalesced update (cdlrm_tpu
+        trainer.py:1612, one replica), run at dispatch. ``infos``: each
+        step's (unique slots, per-table counts, unique bucket). Unions the
+        block's unique cache rows, aux-region and trash rows excluded, and
+        emits each step's block-rank row aligned with its staged unique list
+        (position 0 and the padding, and every aux or trash slot, rank to the
+        pending trash row, the last). Returns the device tensors (rank rows
+        [ub] int32 per step, the sorted union trash-padded to a power-of-two
+        bucket [Pb] int32, its length [1] int32).
+
+        The union is a bitmap over the cache's rows: the shared native
+        kernels (``mask_bits``, ``block_union``, ``block_ranks``,
+        ``block_union_reset``, cdlrm_tpu/ops/native.py:544-640) where the
+        host library is available, else the numpy form, which gives the same
+        output (np.flatnonzero is ascending, as the native scan is)."""
+        ub = infos[0][2]
+        if any(info[2] != ub for info in infos):
+            # blocks never cross windows and the bucket is negotiated per
+            # window, so a mismatch means that invariant broke
+            raise RuntimeError(
+                "dedup bucket changed within a scan block "
+                f"({[info[2] for info in infos]})"
+            )
+        geo = self.geo
+        use_native = native.available()
+        if self._blk_real_mask is None:
+            real = np.zeros(geo.total_rows, bool)
+            for t in range(len(geo.table_offsets)):
+                real[int(geo.table_offsets[t]): int(geo.aux_base(t))] = True
+            self._blk_real_mask = real
+            if use_native:
+                self._blk_real_bits = native.mask_bits(real.astype(np.uint8))
+            # slot -> block rank; -1 = not in this block's union. Reset after
+            # each block (union entries only)
+            self._blk_rank_map = np.full(geo.total_rows, -1, np.int32)
+        rmap = self._blk_rank_map
+        cat = np.concatenate([info[0] for info in infos])
+        off = np.zeros(len(infos) + 1, np.int64)
+        np.cumsum([info[0].size for info in infos], out=off[1:])
+        union = None
+        try:
+            if use_native:
+                try:
+                    union = native.block_union(cat, self._blk_real_bits, geo.total_rows, rmap)
+                except MemoryError:
+                    union = None  # the bitmap allocation failed: numpy form
+            if union is None:
+                present = np.zeros(geo.total_rows, bool)
+                present[cat] = True
+                present &= self._blk_real_mask
+                union = np.flatnonzero(present)
+                rmap[union] = np.arange(union.size, dtype=np.int32)
+            # +1: the last pending row is the trash rank
+            p_bucket = pow2_bucket(union.size + 1, min_size=1024)
+            p_bucket = self._bucket_run_max["blk"] = max(self._bucket_run_max["blk"], p_bucket)
+            p_trash = p_bucket - 1
+            blk_slots = np.full(p_bucket, geo.trash_row, np.int32)
+            blk_slots[: union.size] = union
+            blk_counts = np.array([union.size], np.int32)
+            if use_native:
+                rows = native.block_ranks(cat, off, rmap, p_trash, ub, 1)
+            else:
+                rows = np.full((len(infos), ub), p_trash, np.int32)
+                for i, info in enumerate(infos):
+                    r = rmap[info[0]]
+                    # aux and trash slots are never in the union: -1 -> trash
+                    rows[i, 1: 1 + r.size] = np.where(r < 0, p_trash, r)
+        finally:
+            # restore the map's all -1 precondition whatever raised above
+            if union is not None and use_native:
+                native.block_union_reset(union, rmap)
+            elif union is not None:
+                rmap[union] = -1
+        ranks = [self._to_device(r) for r in rows]
+        return ranks, self._to_device(blk_slots), self._to_device(blk_counts)
+
     def train(self, max_steps: Optional[int] = None, log_fn=print) -> TrainMetrics:
-        """Main loop (cdlrm_tpu trainer.py:1774 at scan_steps=1): consume
-        batches the AssemblyPipeline thread probed and staged ahead, apply
-        the refill at each window boundary it signals, and run the cadences
-        (print, test) on global_step. Each step's loss and accuracy stay on
-        the device until the next print, then come back in one copy."""
+        """Main loop (cdlrm_tpu trainer.py:1774): consume batches the
+        AssemblyPipeline thread probed and staged ahead, in blocks of up to
+        ``scan_steps`` batches that never cross a window boundary or a
+        cadence (print, test), apply the refill at each window boundary it
+        signals, and run the cadences on global_step. Each step's loss and
+        accuracy stay on the device until the next print, then come back in
+        one copy."""
         from cdlrm_tpu.train.pipeline import WINDOW_BOUNDARY, WINDOW_REPLAY
 
         cfg = self.cfg
@@ -711,17 +865,83 @@ class CachedDlrmTrainer:
                     log_fn(f"MLPerf threshold reached (acc={acc:.5f}, auc={auc:.5f}); stopping")
                     self._stop_requested = True
 
+        def cadence_dist(j, f):
+            return f - (j % f) if f and f > 0 else 1 << 30
+
+        def block_cap():
+            """The largest block from the current step that crosses no
+            cadence boundary, so every cadence fires at its global step (one
+            device: no aggregation cadence; checkpoint saves are refused)."""
+            j = self.global_step
+            cap = self._scan_block
+            if max_steps is not None:
+                cap = min(cap, max_steps - j)
+            cap = min(cap, cadence_dist(j, cfg.print_freq))
+            if self.test_dataset is not None and cfg.test_freq > 0:
+                cap = min(cap, cadence_dist(j, cfg.test_freq))
+            return max(1, cap)
+
         wire_dedup = None  # wire of the batches since the last boundary
+
+        def run_block(items):
+            """Run len(items) consecutive steps: one step, or a scan block,
+            coalesced when every item carries its block info (cdlrm_tpu
+            trainer.py:1933-2001)."""
+            nonlocal wire_dedup
+            dedup = items[0][4]
+            if wire_dedup is None:
+                wire_dedup = dedup
+            if any(it[4] != wire_dedup for it in items):
+                # the wire may change only at a window boundary; a batch in
+                # the other format would be misread by this step
+                raise RuntimeError("mixed wire formats within a window")
+            for it in items:
+                it[3].commit(self.metrics)
+            if len(items) == 1:
+                cursor, _, inputs, _, _, _ = items[0]
+                self.params, self.cache, loss_sum, correct = self._get_step(1, dedup)(
+                    self.params, self.cache, *inputs, self._lr, self._lr_emb,
+                )
+                pending.append((loss_sum, correct))
+                after_step(cursor)
+                return
+            coalesce = dedup and self._block_coalesce and all(it[5] is not None for it in items)
+            step = self._get_step(len(items), dedup, coalesce)
+            if coalesce:
+                ranks, blk_slots, blk_counts = self._build_block_union([it[5] for it in items])
+                args = self.interleave_block_inputs([it[2] for it in items], ranks)
+                args += [blk_slots, blk_counts]
+            else:
+                args = [a for it in items for a in it[2]]
+            self.params, self.cache, loss_v, corr_v = step(
+                self.params, self.cache, *args, self._lr, self._lr_emb,
+            )
+            for i, it in enumerate(items):
+                pending.append((loss_v[i], corr_v[i]))
+                after_step(it[0])
+
         while True:
             if max_steps is not None and self.global_step >= max_steps:
                 break
             if self._stop_requested:
                 break
-            item = pipe.get()
-            if item is None:
+            items, stream_end, boundary = [], False, None
+            cap = block_cap()
+            while len(items) < cap:
+                item = pipe.get()
+                if item is None:
+                    stream_end = True
+                    break
+                if item is WINDOW_BOUNDARY or item is WINDOW_REPLAY:
+                    boundary = item
+                    break
+                items.append(item)
+            if items:
+                run_block(items)
+            if stream_end:
                 self._stream_done = True
                 break
-            if item is WINDOW_BOUNDARY or item is WINDOW_REPLAY:
+            if boundary is not None:
                 if self._stager is not None:
                     popped = self._stager.get()
                     window, staged = popped if popped else (None, None)
@@ -729,7 +949,7 @@ class CachedDlrmTrainer:
                     window, staged = self.prefetcher.get_window(), None
                 if window is None:
                     break
-                if item is WINDOW_REPLAY:
+                if boundary is WINDOW_REPLAY:
                     # mid-window resume: the checkpointed occupancy and RNG
                     # already hold this window's insert plan
                     self._apply_window_stats(window)
@@ -737,20 +957,6 @@ class CachedDlrmTrainer:
                     self._apply_refill(window, staged)
                 wire_dedup = None
                 pipe.notify_refill_applied()
-                continue
-            cursor, _, inputs, stats, dedup, _ = item
-            if wire_dedup is None:
-                wire_dedup = dedup
-            elif dedup != wire_dedup:
-                # the wire may change only at a window boundary; a batch in
-                # the other format would be misread by this step
-                raise RuntimeError("mixed wire formats within a window")
-            stats.commit(self.metrics)
-            self.params, self.cache, loss_sum, correct = self._get_step(dedup)(
-                self.params, self.cache, *inputs, self._lr, self._lr_emb,
-            )
-            pending.append((loss_sum, correct))
-            after_step(cursor)
         flush_pending()
         return self.metrics
 

@@ -11,13 +11,18 @@ gather, set and add bit-exact; the duplicate-slot row add within a stated
 tolerance of a float64 reference). Then it drives the port's main paths at
 the full width of the headline model (26 tables x 250,000 rows, dim 128,
 bottom MLP 13-512-256-128, top MLP 512-256-1, cache 16,384 sets x 8 ways,
-batch 4096, bfloat16): cached serving, and cached training in two runs of 30
+batch 4096, bfloat16): cached serving; cached training in two runs of 30
 steps at lookahead 2, one with the default flags (the wire chosen per window,
-here the plain wire) and one on the packed dedup wire. Each run resets every
-kernel's launch count just before it and reads them just after. One serving
-batch and one train step are checked against the same inputs run through
-the port on the CPU. Last it runs the port's CLI, serving and training. Any
-failed phase raises, and the script exits non-zero without printing a
+here the plain wire) and one on the packed dedup wire; cached training with
+bench.py's flags (scan blocks of 10, the unpacked wires, lookahead 20) on
+bench.py's loguniform id stream in two runs of 40 counted steps, (c) with
+the block-coalesced update and (d) without; and full-table training with the
+tables on the card. Each run resets every kernel's launch count just before
+it and reads them just after. One serving batch, one train step of each
+cached run, one coalesced block and one full-table step are checked against
+the same inputs run through the port on the CPU. Last it runs the port's
+CLI: serving, training, coalesced scan blocks and the full-table trainer.
+Any failed phase raises, and the script exits non-zero without printing a
 result; with no CUDA device it exits 1 at once. The last line of standard
 output is a JSON object ``{"ok": true, "device": {...}}``; the line before it
 is the card's name and power limit, and the line before that the per-kernel
@@ -44,6 +49,11 @@ TABLES, ROWS, DIM = 26, 250_000, 128
 BOT_MLP, TOP_MLP, CACHE_SETS, WAYS = "13-512-256-128", "512-256-1", 16_384, 8
 BATCH, SERVE_BATCHES, WARM_BATCHES = 4096, 20, 10
 TRAIN_STEPS, TRAIN_WARM_STEPS, LOOKAHEAD = 30, 4, 2
+# bench.py's training flags (bench.py:111-137 with BENCH_PACK=0): scan blocks
+# of 10 on the unpacked wires, lookahead 20; 10 steps of set-up, then 40
+BLOCK_STEPS, BLOCK_WARM_STEPS, BLOCK_LOOKAHEAD, SCAN_STEPS = 40, 10, 20, 10
+CHECK_BLOCK = 2  # steps in the coalesced block held against the CPU
+FT_STEPS, FT_EVAL_BATCHES = 10, 2  # full-table training, then eval
 TIMING_REPS = 25
 # serving scores (probabilities) and one train step's caches, parameters and
 # loss on the card vs the CPU: both round the same operands to bf16 and
@@ -323,8 +333,11 @@ def serve(card: str, dev: torch.device) -> dict:
 
 
 def run_cli(dev: torch.device) -> None:
-    """Phase 4: the port's CLI at a small size on the card: serving, then a
-    training run (which evaluates after it)."""
+    """Phase 4: the port's CLI at a small size on the card: serving; then
+    training runs, each evaluating after it: the default flags, coalesced
+    scan blocks on the unpacked dedup wire (forced on: the random stream is
+    near-unique, so 'auto' would take the plain wire), and the full-table
+    trainer."""
     common = [
         sys.executable, "-m", "cdlrm_tpu_torch.cli", "--device", dev.type,
         "--data-generation", "random",
@@ -334,7 +347,10 @@ def run_cli(dev: torch.device) -> None:
         "--num-ways", "4", "--loss-function", "bce", "--round-targets",
     ]
     for extra, want in ((["--inference-only"], "Test accuracy"),
-                        (["--lookahead", "2", "--print-freq", "5"], "Step 10:")):
+                        (["--lookahead", "2", "--print-freq", "5"], "Step 10:"),
+                        (["--scan-steps", "4", "--no-pack-wire", "--dedup-lookups", "on",
+                          "--lookahead", "8", "--print-freq", "5"], "Step 10:"),
+                        (["--no-use-cache", "--print-freq", "5"], "Epoch 0: 5/")):
         res = subprocess.run(common + extra, cwd=REPO, capture_output=True, text=True,
                              timeout=300)
         if res.returncode != 0 or want not in res.stdout or "Test accuracy" not in res.stdout:
@@ -407,7 +423,7 @@ def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
         t0 = time.perf_counter()
         inputs, _, dedup, _ = tr._assemble(batch, BATCH)
         host_ms.append(1000 * (time.perf_counter() - t0))
-    step = tr._get_step(dedup)
+    step = tr._get_step(1, dedup)
     params_cpu = {k: [(w.to("cpu", copy=True), b.to("cpu", copy=True)) for w, b in v]
                   for k, v in tr.params.items()}
     cache_cpu = tr.cache.to("cpu", copy=True)
@@ -430,17 +446,228 @@ def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
     return dict(launches=launches)
 
 
+class LogUniformStream:
+    """bench.py's default id stream (bench.py:180-199), rebuilt here with
+    numpy because bench.py imports jax: per table ``idx = exp(u * ln ROWS) -
+    1`` with u uniform in [0, 1), so head ids repeat (about 0.57 N distinct
+    ids in a batch of N lookups at the headline width), a Criteo-like skew."""
+
+    m_den = 13
+
+    def __init__(self, num_batches: int, seed: int):
+        self.ln_emb = np.full(TABLES, ROWS, dtype=np.int64)
+        self.num_batches, self.seed = num_batches, seed
+
+    def __len__(self):
+        return self.num_batches
+
+    def batches(self):
+        from cdlrm_tpu.data.synthetic import Batch
+
+        rng = np.random.Generator(np.random.SFC64(self.seed))
+        for _ in range(self.num_batches):
+            x = rng.random((BATCH, 13), dtype=np.float32)
+            u = rng.random((TABLES, BATCH), dtype=np.float32)
+            idx = np.exp(u * np.log(ROWS)).astype(np.int64) - 1
+            np.minimum(idx, ROWS - 1, out=idx)
+            y = np.round(rng.random((BATCH, 1), dtype=np.float32))
+            yield Batch(x, idx, None, y)
+
+
+def _cpu_copy(params) -> dict:
+    return {k: [(w.to("cpu", copy=True), b.to("cpu", copy=True)) for w, b in v]
+            for k, v in params.items()}
+
+
+def _max_param_err(p_dev, p_cpu) -> float:
+    return max(float((a.cpu() - b).abs().max())
+               for k in p_dev for pa, pb in zip(p_dev[k], p_cpu[k]) for a, b in zip(pa, pb))
+
+
+def _max_row_err(dev_rows: torch.Tensor, cpu_rows: torch.Tensor, chunk: int = 1 << 20) -> float:
+    """max |dev - cpu| over two [R, D] tensors, a chunk of rows at a time
+    (the full tables are 3.33 GB)."""
+    return max(float((dev_rows[i: i + chunk].cpu() - cpu_rows[i: i + chunk]).abs().max())
+               for i in range(0, cpu_rows.shape[0], chunk))
+
+
+def check_block(card: str, tr, ds, total: int) -> dict:
+    """One coalesced block of CHECK_BLOCK steps over the last trained
+    batches (resident ids; the pipeline threads are stopped): the card
+    against the port on the CPU from the same cache and parameters; then the
+    block's device time by CUDA events, beside the same steps without
+    coalescing."""
+    batches = list(itertools.islice(ds.batches(), total))[-CHECK_BLOCK:]
+    items = [tr._assemble(b, BATCH) for b in batches]
+    assert all(dedup and binfo is not None for _, _, dedup, binfo in items), "not coalescable"
+    ranks, blk_slots, blk_counts = tr._build_block_union([it[3] for it in items])
+    args = tr.interleave_block_inputs([it[0] for it in items], ranks) + [blk_slots, blk_counts]
+    step = tr._get_step(CHECK_BLOCK, True, True)
+    params_cpu, cache_cpu = _cpu_copy(tr.params), tr.cache.to("cpu", copy=True)
+    p_dev, c_dev, l_dev, _ = step(tr.params, tr.cache, *args, tr._lr, tr._lr_emb)
+    p_cpu, c_cpu, l_cpu, _ = step(params_cpu, cache_cpu, *[a.cpu() for a in args],
+                                  tr._lr, tr._lr_emb)
+    assert l_dev.shape == (CHECK_BLOCK,) and bool(torch.isfinite(c_dev).all())
+    cache_err = _max_row_err(c_dev, c_cpu)
+    param_err = _max_param_err(p_dev, p_cpu)
+    loss_err = float((l_dev.cpu() - l_cpu).abs().max()) / BATCH
+    del c_cpu, cache_cpu
+    assert max(cache_err, param_err, loss_err) <= SCORE_TOL, (cache_err, param_err, loss_err)
+    block_ms = time_ms(lambda: step(tr.params, tr.cache, *args, tr._lr, tr._lr_emb), 10)
+    plain_args = [a for it in items for a in it[0]]
+    per_step = tr._get_step(CHECK_BLOCK, True, False)
+    per_step_ms = time_ms(lambda: per_step(tr.params, tr.cache, *plain_args, tr._lr, tr._lr_emb), 10)
+    union = int(blk_counts[0])
+    print(f"  one coalesced block of {CHECK_BLOCK} steps ({union} union rows) vs the CPU run: "
+          f"max |cache difference| {cache_err:.3e}, |param difference| {param_err:.3e}, "
+          f"|loss difference| {loss_err:.3e} (tolerance {SCORE_TOL}); device time "
+          f"{block_ms:.3f} ms by events, the same {CHECK_BLOCK} steps without coalescing "
+          f"{per_step_ms:.3f} ms")
+    return dict(block_ms=block_ms, per_step_ms=per_step_ms)
+
+
+def block_run(card: str, dev: torch.device, coalesce: str) -> dict:
+    """One training run with bench.py's flags (scan blocks, unpacked wires,
+    auto-dedup, lookahead 20) on its loguniform stream: BLOCK_WARM_STEPS
+    steps of set-up, then BLOCK_STEPS counted steps with every launch count
+    reset just before them. The lookahead and the step counts are multiples
+    of SCAN_STEPS and no cadence falls inside, so every counted block is a
+    full one. With the block-coalesced update, check_block follows."""
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    cfg = headline_config(
+        scan_steps=SCAN_STEPS, pack_wire=False, dedup_lookups="auto",
+        block_coalesced_update=coalesce, lookahead=BLOCK_LOOKAHEAD, print_freq=1 << 30,
+    )
+    total = BLOCK_WARM_STEPS + BLOCK_STEPS
+    ds = LogUniformStream(total + BLOCK_LOOKAHEAD, seed=SEED + 3)
+    tr = CachedDlrmTrainer(cfg, ds, device=dev)
+    blocks = []
+    get_step = tr._get_step
+
+    def recording_get_step(size, dedup, coalesced=False):
+        blocks.append((size, dedup, coalesced))
+        return get_step(size, dedup, coalesced)
+
+    tr._get_step = recording_get_step
+    try:
+        t0 = time.perf_counter()
+        m = tr.train(max_steps=BLOCK_WARM_STEPS)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        counters = ("loss_sum", "correct", "examples", "hits", "lookups", "refills",
+                    "caching_overhead_s")
+        before = [getattr(m, c) for c in counters]
+        blocks.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.train(max_steps=total)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        counted = list(blocks)
+        loss_sum, correct, examples, hits, lookups, refills, refill_s = (
+            getattr(m, c) - was for c, was in zip(counters, before)
+        )
+        assert tr.global_step == total
+        wire = tr._dedup
+    finally:
+        tr.close()
+    run = "c" if cfg.block_coalesced_update else "d"
+    loss, hit = loss_sum / examples, hits / lookups
+    print(f"[{card}] train ({run}) scan_steps={SCAN_STEPS}, unpacked wires, "
+          f"block_coalesced_update={coalesce}: {BLOCK_STEPS} steps of {BATCH} in {wall:.3f} s "
+          f"host wall, {BLOCK_STEPS * BATCH / wall:.1f} examples/s "
+          f"({1000 * wall / BLOCK_STEPS:.2f} ms/step incl. {refills} refills that held the "
+          f"train thread {refill_s:.3f} s in all; set-up {warm:.2f} s for {BLOCK_WARM_STEPS} "
+          f"steps); loss {loss:.6f}, acc {correct / examples:.6f}, train hit rate {hit:.6f}, "
+          f"dedup wire {wire}, blocks (size, dedup, coalesced) {counted}, kernel launches "
+          f"{launches}")
+    assert np.isfinite(loss), loss
+    assert refills > 0, "no refill in the counted steps"
+    assert wire, "the loguniform stream should take the dedup wire"
+    n_blocks = BLOCK_STEPS // SCAN_STEPS
+    assert counted == [(SCAN_STEPS, True, run == "c")] * n_blocks, counted
+    out = dict(launches=launches, blocks=n_blocks)
+    if run == "c":
+        out.update(check_block(card, tr, ds, total))
+    return out
+
+
 def train(card: str, dev: torch.device) -> dict:
-    """Phase 5: cached training at full width in two runs: (a) the default
+    """Phase 5: cached training at full width in four runs: (a) the default
     flags, where auto-dedup picks the plain wire (uniform ids: unique lookups
-    are nearly all lookups), and (b) the packed dedup wire."""
-    runs = {"a": train_run(card, dev, "auto"), "b": train_run(card, dev, "on")}
-    la, lb = runs["a"]["launches"], runs["b"]["launches"]
+    are nearly all lookups), (b) the packed dedup wire, and with bench.py's
+    flags on the loguniform stream (c) the block-coalesced update and (d)
+    the per-step update."""
+    runs = {"a": train_run(card, dev, "auto"), "b": train_run(card, dev, "on"),
+            "c": block_run(card, dev, "auto"), "d": block_run(card, dev, "off")}
+    la, lb, lc, ld = (runs[k]["launches"] for k in "abcd")
     assert la["index_add_rows"] > 0 and la["scatter_add_rows"] == 0, la
     assert lb["scatter_add_rows"] > 0 and lb["index_add_rows"] > 0, lb
-    for launches in (la, lb):
+    # (c): one flush per coalesced block, one pending add per step; (d): one
+    # unique-row add per step
+    assert lc["scatter_add_rows"] == runs["c"]["blocks"], lc
+    assert lc["index_add_rows"] == BLOCK_STEPS, lc
+    assert ld["scatter_add_rows"] == BLOCK_STEPS, ld
+    for launches in (la, lb, lc, ld):
         assert launches["gather_rows"] > 0 and launches["scatter_set_rows"] > 0, launches
     return runs
+
+
+def fulltable(card: str, dev: torch.device) -> dict:
+    """Phase 6: full-table training at full width, the 26 tables (3.33 GB of
+    float32) on the card: FT_STEPS steps on the loguniform stream, then
+    FT_EVAL_BATCHES eval batches, with every launch count reset just before;
+    then one step on the card against the port on the CPU, and its device
+    time."""
+    from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
+
+    cfg = headline_config(use_cache=False, print_freq=1 << 30)
+    ds = LogUniformStream(FT_STEPS + 1, seed=SEED + 5)
+    test_ds = LogUniformStream(FT_EVAL_BATCHES, seed=SEED + 6)
+    t0 = time.perf_counter()
+    tr = FullTableDlrmTrainer(cfg, ds, test_ds, device=dev)
+    torch.cuda.synchronize()
+    print(f"[{card}] full-table trainer built in {time.perf_counter() - t0:.2f} s: tables "
+          f"{tuple(tr.tables.shape)} float32 ({tr.tables.numel() * 4 / 1e9:.3f} GB) on {dev}")
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.train(max_steps=FT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc, auc = tr.evaluate(max_batches=FT_EVAL_BATCHES)
+    launches = read_launches()
+    print(f"[{card}] full-table train: {FT_STEPS} steps of {BATCH} in {wall:.3f} s host wall, "
+          f"{FT_STEPS * BATCH / wall:.1f} examples/s ({1000 * wall / FT_STEPS:.2f} ms/step, "
+          f"first step included); eval of {FT_EVAL_BATCHES} batches: accuracy {acc:.6f} AUC "
+          f"{auc:.6f}; kernel launches {launches}")
+    assert tr.global_step == FT_STEPS and np.isfinite(acc) and np.isfinite(auc), (acc, auc)
+    assert launches == {"gather_rows": 2 * FT_STEPS + FT_EVAL_BATCHES, "scatter_set_rows": 0,
+                        "scatter_add_rows": FT_STEPS, "index_add_rows": FT_STEPS}, launches
+
+    batch = list(itertools.islice(ds.batches(), FT_STEPS + 1))[-1]
+    x, ls_i, mask, tgt = tr._put(batch)
+    params_cpu, tables_cpu = _cpu_copy(tr.params), tr.tables.to("cpu", copy=True)
+    p_dev, t_dev, l_dev, _ = tr.train_step(tr.params, tr.tables, tr._offsets, x, ls_i, mask,
+                                           tgt, tr._lr, tr._lr_emb)
+    p_cpu, t_cpu, l_cpu, _ = tr.train_step(params_cpu, tables_cpu, tr._offsets.cpu(), x.cpu(),
+                                           ls_i.cpu(), mask.cpu(), tgt.cpu(), tr._lr, tr._lr_emb)
+    assert bool(torch.isfinite(l_dev)), "non-finite loss"
+    table_err = _max_row_err(t_dev, t_cpu)
+    param_err = _max_param_err(p_dev, p_cpu)
+    loss_err = abs(float(l_dev) - float(l_cpu)) / BATCH
+    del t_cpu, tables_cpu
+    assert max(table_err, param_err, loss_err) <= SCORE_TOL, (table_err, param_err, loss_err)
+    step_ms = time_ms(lambda: tr.train_step(tr.params, tr.tables, tr._offsets, x, ls_i, mask,
+                                            tgt, tr._lr, tr._lr_emb), 10)
+    print(f"  one full-table step vs the CPU run: max |table difference| {table_err:.3e}, "
+          f"|param difference| {param_err:.3e}, |loss difference| {loss_err:.3e} (tolerance "
+          f"{SCORE_TOL}); step {step_ms:.3f} ms by events (torch.unique waits for the "
+          f"device inside it)")
+    del tr, t_dev
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
 
 
 def main() -> int:
@@ -469,15 +696,18 @@ def main() -> int:
     served = serve(card, dev)
     run_cli(dev)
     runs = train(card, dev)
+    torch.cuda.empty_cache()
+    full = fulltable(card, dev)
     assert "jax" not in sys.modules, "the port imported jax"
 
     sources = {"gather_rows": "cdlrm_tpu/ops/lookup.py:70",
                "scatter_set_rows": "cdlrm_tpu/ops/scatter.py:257",
                "scatter_add_rows": "cdlrm_tpu/ops/scatter.py:211",
                "index_add_rows": "cdlrm_tpu/ops/lookup.py:99"}
-    # launches: the sum over the main-path runs (serving, training a and b),
-    # each counted from 0
-    launches = {name: served[name] + runs["a"]["launches"][name] + runs["b"]["launches"][name]
+    # launches: the sum over the main-path runs (serving, training a to d,
+    # full-table training), each counted from 0
+    launches = {name: served[name] + full["launches"][name]
+                + sum(run["launches"][name] for run in runs.values())
                 for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "cdlrm_tpu_torch/csrc/row_ops.cu",

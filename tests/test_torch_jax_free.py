@@ -67,11 +67,27 @@ for pooled, dedup in ((1, "auto"), (1, "on"), (3, "on")):
 
 _CLI = _BLOCK_JAX + """
 import runpy
+from cdlrm_tpu_torch.train import trainer
+# record the train steps the cached trainer builds: (size, dedup, coalesce)
+_BLOCKS = set()
+_get_step = trainer.CachedDlrmTrainer._get_step
+def _recording(self, *key):
+    _BLOCKS.add(tuple(key) + (False,) * (3 - len(key)))
+    return _get_step(self, *key)
+trainer.CachedDlrmTrainer._get_step = _recording
 try:
     runpy.run_module("cdlrm_tpu_torch.cli", run_name="__main__")
 except SystemExit as e:
     assert e.code in (0, None), e.code
 """ + _JAX_LOADED
+# a small training run of the CLI on the CPU: 8 batches of 64
+_SMALL = (
+    "--device", "cpu", "--data-generation", "random",
+    "--arch-embedding-size", "1000-500-2000", "--arch-sparse-feature-size", "16",
+    "--arch-mlp-bot", "13-32-16", "--arch-mlp-top", "16-8-1",
+    "--mini-batch-size", "64", "--num-batches", "8", "--cache-size", "128",
+    "--num-ways", "4", "--loss-function", "bce", "--round-targets",
+)
 
 
 def _run(code, *args):
@@ -122,14 +138,33 @@ def test_cli_trains_without_jax():
     assert "Step 8:" in res.stdout and "Test accuracy" in res.stdout
 
 
+def test_cli_trains_scan_blocks_without_jax():
+    """Coalesced scan blocks on the unpacked dedup wire (the random stream is
+    near-unique, so dedup is forced on), then eval."""
+    res = _run(
+        _CLI + "print('BLOCKS', sorted(k for k in _BLOCKS))\n",
+        *_SMALL, "--scan-steps", "4", "--no-pack-wire", "--dedup-lookups", "on",
+        "--lookahead", "8", "--print-freq", "4",
+    )
+    assert res.returncode == 0, res.stderr
+    assert "Step 8:" in res.stdout and "Test accuracy" in res.stdout
+    assert "(4, True, True)" in res.stdout  # a coalesced block of 4 ran
+
+
+def test_cli_trains_fulltable_without_jax():
+    res = _run(_CLI, *_SMALL, "--no-use-cache", "--print-freq", "4")
+    assert res.returncode == 0, res.stderr
+    assert "Epoch 0: 4/8" in res.stdout and "Test accuracy" in res.stdout
+
+
 def test_cli_refuses_training():
     """The CLI trains now; what it refuses is training with a field the port
     does not implement, before any data is read."""
     from cdlrm_tpu_torch import cli
 
-    with pytest.raises(ValueError, match="does not implement.*scan_steps"):
+    with pytest.raises(ValueError, match="does not implement.*hot_tier_rows"):
         cli.main(["--device", "cpu", "--arch-embedding-size", "100-200",
-                  "--arch-sparse-feature-size", "2", "--scan-steps", "4"])
+                  "--arch-sparse-feature-size", "2", "--hot-tier-rows", "64"])
 
 
 def _fields_equal(a: Config, b: Config):

@@ -78,7 +78,7 @@ def test_train_step_matches_jax(pooled, dedup):
         j_params, j_cache, _, j_loss, j_corr = jtr._get_step(1, dedup)(
             jtr.params, jtr.cache, jtr.touched, *j_in, jtr._lr, jtr._lr_emb,
         )
-        p_params, p_cache, p_loss, p_corr = ptr._get_step(dedup)(
+        p_params, p_cache, p_loss, p_corr = ptr._get_step(1, dedup)(
             ptr.params, ptr.cache, *p_in, ptr._lr, ptr._lr_emb,
         )
         np.testing.assert_allclose(p_loss.item(), float(j_loss), **TOL)

@@ -120,7 +120,7 @@ def test_port_refill_then_serve_hits():
 def test_unported_flags_are_refused():
     ds = _ds(5, 1)
     for kw in (dict(md_flag=True), dict(wire_x_fp8=True), dict(wire_rows_bf16=True),
-               dict(use_cache=False), dict(coordinator_address="localhost:1234"),
+               dict(qr_flag=True), dict(coordinator_address="localhost:1234"),
                dict(world_size=2)):
         with pytest.raises(ValueError, match="does not implement"):
             CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
@@ -134,19 +134,22 @@ def test_unported_flags_are_refused():
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(scan_steps=4), "scan_steps"),
+    (dict(qr_flag=True), "qr_flag"),
     (dict(hot_tier_rows=64), "hot_tier_rows"),
     (dict(sorted_dedup_wire=True, pack_wire=False, dedup_lookups="on"), "sorted_dedup_wire"),
     (dict(save_model="/nonexistent/ck"), "save_model"),
     (dict(checkpoint_freq=10), "checkpoint_freq"),
-    (dict(pack_wire=False, dedup_lookups="on"), "unpacked dedup wire"),
-    (dict(pack_wire=False), "unpacked dedup wire"),  # dedup_lookups='auto'
+    (dict(optimizer="adagrad", dedup_lookups="on", learning_rate=0.01, lr_embeds=0.01),
+     "AdaGrad"),
+    (dict(world_size=2), "world_size"),
     (dict(enable_profiling=True), "enable_profiling"),
+    (dict(md_flag=True), "md_flag"),
 ])
 def test_unimplemented_training_fields_are_refused(kw, name):
     """Fields that train() would otherwise ignore are refused at
     construction; serving with all of them at their defaults is pinned by
-    the tests above."""
+    the tests above. Scan blocks, the unpacked dedup wire and use_cache=False
+    (routed to the full-table trainer by the CLI) are ported."""
     ds = _ds(5, 1)
     with pytest.raises(ValueError, match="does not implement .*" + name):
         CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
