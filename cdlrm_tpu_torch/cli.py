@@ -1,7 +1,9 @@
 """Training and serving CLI, the counterpart of cdlrm_tpu/cli.py on one
 device: train on the stream (unless ``--inference-only``), then evaluate the
-test stream, optionally starting from a cdlrm_tpu checkpoint. The cached
-trainer runs by default, the full-table trainer with ``--no-use-cache``.
+test stream and save a checkpoint with ``--save-model`` (unless
+``--inference-only``), optionally starting from a checkpoint of either
+package (``--load-model``). The cached trainer runs by default, the
+full-table trainer with ``--no-use-cache``.
 
 Example (tiny, CPU-runnable):
   python -m cdlrm_tpu_torch.cli --device cpu --data-generation random \
@@ -55,6 +57,8 @@ def main(argv=None) -> int:
             trainer.train(max_steps=cfg.num_batches if cfg.num_batches > 0 else None)
         if test_ds is not None:
             trainer.evaluate()
+        if cfg.save_model and not cfg.inference_only:
+            trainer.save_checkpoint(cfg.save_model)
     finally:
         trainer.close()
     return 0

@@ -10,7 +10,7 @@ cdlrm_tpu's formula, clip included.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -87,6 +87,18 @@ def params_from_jax(
     if n_emb:
         out["emb"] = tensors[2 * n_bot: 2 * n_bot + n_emb]
     return out
+
+
+def params_to_jax(params: dict) -> List[np.ndarray]:
+    """The inverse of :func:`params_from_jax`: the leaves of ``{"bot",
+    ["emb",] "top"}`` as float32 numpy copies on the host, in
+    ``jax.tree_util.tree_flatten`` order (every bottom (W, b), then every
+    table, then every top (W, b)): the ``leaf_i`` layout of cdlrm_tpu's
+    ``dense_params.npz``, ``dense_acc.npz`` and ``fulltable_*.npz``. The
+    copies are taken now, so a later in-place update does not reach them."""
+    leaves = [a for pair in params["bot"] for a in pair] + list(params.get("emb", []))
+    leaves += [a for pair in params["top"] for a in pair]
+    return [t.detach().to("cpu", copy=True).numpy() for t in leaves]
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,10 +9,14 @@ tables are one flat ``[sum(n), D]`` tensor (models/embedding.py); the
 parameters, drawn from one generator in cdlrm_tpu's order (the dense MLPs,
 then the tables), are equal to cdlrm_tpu's for the same seed.
 
-Ported: construction, ``train`` (SGD), ``evaluate``, ``load_checkpoint`` of
-a cdlrm_tpu ``fulltable_params.npz``, ``close``. Refused at construction
-(``_check_fulltable``): multi-device and multi-host runs, QR and MD tables,
-AdaGrad, checkpoint saves and profiling (ROADMAP.md queue 1).
+Ported: construction, ``train`` (SGD, or AdaGrad with a row-wise
+accumulator per table row), ``evaluate``, ``save_checkpoint`` and
+``load_checkpoint`` in cdlrm_tpu's format (``fulltable_params.npz``,
+``fulltable_acc.npz``, ``meta.pkl``), ``close``. Beyond cdlrm_tpu, whose
+full-table trainer ignores them, ``checkpoint_freq`` saves every so many
+steps and ``checkpoint_async`` writes on a background thread, as in the
+cached trainer. Refused at construction (``_check_fulltable``): multi-device
+and multi-host runs, QR and MD tables and profiling (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -28,10 +32,10 @@ import torch
 from cdlrm_tpu.config import Config
 from cdlrm_tpu.data.synthetic import Batch
 from cdlrm_tpu.utils.metrics import StreamingAUC, accuracy_count
-from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax
+from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax, params_to_jax
 from cdlrm_tpu_torch.models.embedding import init_embedding_tables
 from cdlrm_tpu_torch.train import step as step_lib
-from cdlrm_tpu_torch.train.trainer import _pad_batch
+from cdlrm_tpu_torch.train.trainer import CheckpointWriter, _pad_batch, _write_npz, _write_pickle
 
 
 def _check_fulltable(cfg: Config) -> None:
@@ -41,9 +45,6 @@ def _check_fulltable(cfg: Config) -> None:
         "coordinator_address (multi-host)": bool(cfg.coordinator_address),
         "qr_flag (QR tables)": cfg.qr_flag,
         "md_flag (mixed-dimension tables)": cfg.md_flag,
-        "optimizer other than sgd (AdaGrad)": cfg.optimizer != "sgd",
-        "save_model (checkpoint save)": bool(cfg.save_model),
-        "checkpoint_freq > 0 (checkpoint save)": cfg.checkpoint_freq > 0,
         "enable_profiling": cfg.enable_profiling,
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -74,6 +75,17 @@ class FullTableDlrmTrainer:
                                                      device=self.device)
         self.table_offsets = offsets
         self._offsets = torch.from_numpy(offsets).to(self.device)
+        # AdaGrad state (cdlrm_tpu fulltable.py:59-72): element-wise dense
+        # accumulators and one row-wise accumulator per table row, held flat
+        # [sum(n)] like the tables
+        self._adagrad = cfg.optimizer == "adagrad"
+        self.dense_acc = self.emb_acc = None
+        if self._adagrad:
+            self.dense_acc = {k: [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in v]
+                              for k, v in self.params.items()}
+            self.emb_acc = torch.zeros(self.tables.shape[0], dtype=torch.float32,
+                                       device=self.device)
+        self._ckpt_writer = CheckpointWriter()
         scfg = step_lib.StepConfig(
             interaction_op=cfg.arch_interaction_op,
             interaction_itself=cfg.arch_interaction_itself,
@@ -82,7 +94,9 @@ class FullTableDlrmTrainer:
             loss_threshold=cfg.loss_threshold,
             compute_dtype=cfg.compute_dtype,
             optimizer=cfg.optimizer,
+            adagrad_eps=cfg.adagrad_eps,
         )
+        self.step_cfg = scfg
         self._pooled = cfg.num_indices_per_lookup > 1 or not cfg.num_indices_per_lookup_fixed
         self.train_step = step_lib.make_fulltable_train_step(scfg, pooled=self._pooled)
         self.eval_step = step_lib.make_fulltable_eval_step(scfg, pooled=self._pooled)
@@ -91,11 +105,13 @@ class FullTableDlrmTrainer:
         self._lr_emb = float(np.float32(cfg.lr_embeds))
         self.global_step = 0
 
-    def emb_tables(self) -> List[torch.Tensor]:
-        """The per-table views [n, D] of the flat tables, in table order
-        (cdlrm_tpu's ``params['emb']`` list)."""
-        ends = list(self.table_offsets[1:]) + [self.tables.shape[0]]
-        return [self.tables[a:b] for a, b in zip(self.table_offsets, ends)]
+    def emb_tables(self, flat: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """The per-table views of the flat tables ([n, D]; cdlrm_tpu's
+        ``params['emb']`` list), or of another tensor laid out by table row,
+        such as the row-wise accumulators ([n])."""
+        flat = self.tables if flat is None else flat
+        ends = list(self.table_offsets[1:]) + [flat.shape[0]]
+        return [flat[a:b] for a, b in zip(self.table_offsets, ends)]
 
     def _put(self, batch: Batch):
         """x, ls_i, the mask (all False for single-index batches) and the
@@ -136,11 +152,19 @@ class FullTableDlrmTrainer:
                 if max_steps is not None and self.global_step >= max_steps:
                     return
                 x, ls_i, mask, tgt = self._put(batch)
-                self.params, self.tables, loss_sum, correct = self.train_step(
-                    self.params, self.tables, self._offsets, x, ls_i, mask, tgt,
-                    self._lr, self._lr_emb,
-                )
+                inputs = (self.params, self.tables, self._offsets, x, ls_i, mask, tgt)
+                if self._adagrad:
+                    (self.params, self.tables, self.dense_acc, self.emb_acc, loss_sum,
+                     correct) = self.train_step(*inputs, self.dense_acc, self.emb_acc,
+                                                self._lr, self._lr_emb)
+                else:
+                    self.params, self.tables, loss_sum, correct = self.train_step(
+                        *inputs, self._lr, self._lr_emb
+                    )
                 self.global_step += 1
+                if (cfg.checkpoint_freq > 0 and cfg.save_model
+                        and self.global_step % cfg.checkpoint_freq == 0):
+                    self.save_checkpoint(cfg.save_model)
                 pending += [loss_sum, correct]
                 if len(pending) >= 2 * 4096:
                     # bound the live device scalars on huge print windows
@@ -184,29 +208,77 @@ class FullTableDlrmTrainer:
         log_fn(f"Test accuracy = {100.0 * acc:.4f}%  AUC = {auc_v:.5f}")
         return acc, auc_v
 
-    def load_checkpoint(self, path: str) -> None:
-        """Load a cdlrm_tpu full-table checkpoint: ``fulltable_params.npz``
+    def save_checkpoint(self, path: str) -> None:
+        """Save in cdlrm_tpu's full-table format (fulltable.py:193-211):
+        ``fulltable_params.npz`` and, under AdaGrad, ``fulltable_acc.npz``
         (``leaf_i`` in jax.tree_util.tree_flatten order of {"bot", "emb",
-        "top"}: every bottom (W, b), every table, every top (W, b)) and the
-        global step of ``meta.pkl``."""
-        if os.path.exists(os.path.join(path, "fulltable_acc.npz")):
+        "top"}: every bottom (W, b), every table, every top (W, b); the
+        ``emb`` accumulators as per-table [n] arrays), and ``meta.pkl``
+        with the global step. The state is copied to the host here; the
+        files are written by a :class:`CheckpointWriter`, on a background
+        thread with ``checkpoint_async``."""
+        self._ckpt_writer.join()
+        os.makedirs(path, exist_ok=True)
+
+        def leaves(params, emb) -> dict:
+            tree = {"bot": params["bot"], "emb": emb, "top": params["top"]}
+            return {f"leaf_{i}": a for i, a in enumerate(params_to_jax(tree))}
+
+        writes = [(_write_npz, os.path.join(path, "fulltable_params.npz"),
+                   leaves(self.params, self.emb_tables()))]
+        if self._adagrad:
+            writes.append((_write_npz, os.path.join(path, "fulltable_acc.npz"),
+                           leaves(self.dense_acc, self.emb_tables(self.emb_acc))))
+        writes.append((_write_pickle, os.path.join(path, "meta.pkl"),
+                       {"global_step": self.global_step}))
+        self._ckpt_writer.run(writes, background=self.cfg.checkpoint_async)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Load a full-table checkpoint of either package (the files of
+        :meth:`save_checkpoint`). Raises cdlrm_tpu's errors
+        (fulltable.py:221-233) when the checkpoint's optimizer state does
+        not fit this run's optimizer."""
+        self._ckpt_writer.join()
+        acc_file = os.path.join(path, "fulltable_acc.npz")
+        if self._adagrad and not os.path.exists(acc_file):
             raise ValueError(
-                f"{path!r} carries AdaGrad optimizer state; this trainer trains SGD only"
+                f"optimizer='adagrad' but {path!r} carries no optimizer "
+                "state (saved by an SGD run?); resume with the matching "
+                "optimizer"
+            )
+        if not self._adagrad and os.path.exists(acc_file):
+            raise ValueError(
+                f"{path!r} carries AdaGrad optimizer state but this run is "
+                "optimizer='sgd'; resuming would silently drop the "
+                "accumulators: pass --optimizer adagrad"
             )
         n_bot, n_top = len(self.params["bot"]), len(self.params["top"])
         n_emb = len(self.table_offsets)
-        with np.load(os.path.join(path, "fulltable_params.npz")) as data:
-            leaves = [data[f"leaf_{i}"] for i in range(2 * (n_bot + n_top) + n_emb)]
-        loaded = params_from_jax(leaves, n_bot=n_bot, n_emb=n_emb, device=self.device)
-        for dst, src in zip(self.emb_tables(), loaded.pop("emb")):
-            if tuple(dst.shape) != tuple(src.shape):
-                raise ValueError(
-                    f"checkpoint table {tuple(src.shape)} != this config's {tuple(dst.shape)}"
-                )
-            dst.copy_(src)
+
+        def load(file: str) -> dict:
+            with np.load(os.path.join(path, file)) as data:
+                leaves = [data[f"leaf_{i}"] for i in range(2 * (n_bot + n_top) + n_emb)]
+            return params_from_jax(leaves, n_bot=n_bot, n_emb=n_emb, device=self.device)
+
+        def copy_rows(dst_views, src):
+            for dst, s in zip(dst_views, src):
+                if tuple(dst.shape) != tuple(s.shape):
+                    raise ValueError(
+                        f"checkpoint table {tuple(s.shape)} != this config's {tuple(dst.shape)}"
+                    )
+                dst.copy_(s)
+
+        loaded = load("fulltable_params.npz")
+        copy_rows(self.emb_tables(), loaded.pop("emb"))
         self.params = loaded
+        if self._adagrad:
+            acc = load("fulltable_acc.npz")
+            copy_rows(self.emb_tables(self.emb_acc), acc.pop("emb"))
+            self.dense_acc = acc
         with open(os.path.join(path, "meta.pkl"), "rb") as f:
             self.global_step = pickle.load(f)["global_step"]
 
     def close(self) -> None:
-        """Nothing to release: the trainer starts no thread."""
+        """Wait for an outstanding checkpoint writer; the trainer starts no
+        other thread."""
+        self._ckpt_writer.join()

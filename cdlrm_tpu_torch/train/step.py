@@ -1,8 +1,8 @@
 """Device steps on one device, the counterpart of cdlrm_tpu/train/step.py:
 the cached train step (the plain wire and the packed and unpacked dedup
-wires, SGD), scan blocks of it with the block-coalesced update, the cached
-eval step, the refill step, the full-table train and eval steps, and the
-wires they read.
+wires; SGD, and AdaGrad on the dedup wires), scan blocks of it with the
+block-coalesced update, the cached eval step, the refill step, the
+full-table train and eval steps, and the wires they read.
 
 Each step is a plain function over tensors on one device. PyTorch runs
 eagerly, so there is no jit and no ``lax.scan``: a scan block is a loop of
@@ -57,7 +57,17 @@ class StepConfig(NamedTuple):
     dedup: bool = False
     inv_bits: int = 13  # rank wire width: >= wire_width(lookups_per_table-1)
     uniq_bits: int = 24  # unique-list wire width (== wire_bits)
+    # "sgd" | "adagrad": element-wise AdaGrad with torch.optim.Adagrad
+    # semantics on the dense MLPs and row-wise AdaGrad (torchrec semantics)
+    # on the embedding rows, the state of each cache row held beside it on
+    # the device (cdlrm_tpu StepConfig.optimizer, step.py:116-133); needs
+    # the dedup wire
     optimizer: str = "sgd"
+    adagrad_eps: float = 1e-10  # torch.optim.Adagrad's default
+    # the refill gathers the evicted slots' row-wise state and sets the
+    # inserted slots' state from the host store, where plain AdaGrad resets
+    # it to 0 (Config.adagrad_master_state)
+    adagrad_master_state: bool = False
     # block-coalesced update (scan blocks on the unpacked dedup wire):
     # per-lookup gradients accumulate in a pending buffer in block-union row
     # space and the cache takes one row add per block (make_cached_train_step)
@@ -226,32 +236,69 @@ def _value_and_grad(cfg: StepConfig, pooled_width: int, params, leaf, expand, x,
     return loss.detach(), p.detach(), grads[:-1], grads[-1]
 
 
-def _finish(params, dflat, p, loss, targets, lr, b_loc: int):
-    """Dense SGD and the step's metrics (cdlrm_tpu ``finish``,
-    step.py:613-628, without the pmean)."""
+def _dense_adagrad(params, dflat, lr, dense_acc, eps: float):
+    """Element-wise AdaGrad with torch.optim.Adagrad semantics (cdlrm_tpu
+    ``_dense_adagrad``, step.py:350-360): ``a += g * g``, then ``w -= lr * g
+    / (sqrt(a) + eps)``, eps outside the sqrt, in cdlrm_tpu's order of
+    float32 operations. ``dflat`` holds the gradients in the order of the
+    (W, b) pairs of ``params["bot"]`` then ``params["top"]``; ``dense_acc``
+    has the shape of ``params``. Returns (params, dense_acc), both new."""
     it = iter(dflat)
-    params = {
-        key: [(w - lr * next(it), b - lr * next(it)) for w, b in params[key]]
-        for key in ("bot", "top")
-    }
+    new_p, new_a = {}, {}
+    for key in ("bot", "top"):
+        new_p[key], new_a[key] = [], []
+        for (w, b), (aw, ab) in zip(params[key], dense_acc[key]):
+            gw, gb = next(it), next(it)
+            aw, ab = aw + gw * gw, ab + gb * gb
+            new_p[key].append((w - lr * gw / (torch.sqrt(aw) + eps),
+                               b - lr * gb / (torch.sqrt(ab) + eps)))
+            new_a[key].append((aw, ab))
+    return new_p, new_a
+
+
+def _rowwise_adagrad_scale(d_rows, acc_rows, lr_embeds: float, eps: float):
+    """Row-wise AdaGrad on embedding rows (cdlrm_tpu
+    ``_rowwise_adagrad_scale``, step.py:363-372; torchrec semantics): the
+    state gains ``mean(g^2)`` per row, and the delta is ``(-lr / (sqrt(acc)
+    + eps)) * g``. ``d_rows`` [U, D], ``acc_rows`` [U]. Returns (delta [U,
+    D], new acc_rows [U]); a row with an exactly-zero gradient keeps its
+    state and gets a zero delta."""
+    acc_rows = acc_rows + torch.mean(d_rows * d_rows, dim=1)
+    denom = torch.sqrt(acc_rows) + eps
+    # a true division, as jnp's: ``float / tensor`` would multiply by the
+    # reciprocal, one more rounding
+    scale = torch.div(denom.new_full((), -lr_embeds), denom)
+    return scale[:, None] * d_rows, acc_rows
+
+
+def _finish(cfg: StepConfig, params, dflat, p, loss, targets, lr, b_loc: int,
+            dense_acc=None):
+    """The dense update, SGD or AdaGrad, and the step's metrics (cdlrm_tpu
+    ``finish``, step.py:613-628, without the pmean). Returns (params,
+    dense_acc, loss_sum, correct); ``dense_acc`` stays None under SGD."""
+    if cfg.optimizer == "adagrad":
+        params, dense_acc = _dense_adagrad(params, dflat, lr, dense_acc, cfg.adagrad_eps)
+    else:
+        it = iter(dflat)
+        params = {
+            key: [(w - lr * next(it), b - lr * next(it)) for w, b in params[key]]
+            for key in ("bot", "top")
+        }
     # torch.round, like jnp.round, rounds half to even
     correct = (torch.round(p) == targets).to(torch.float32).sum()
-    return params, loss * b_loc, correct
+    return params, dense_acc, loss * b_loc, correct
 
 
-def _check_sgd(optimizer: str) -> None:
-    if optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer={optimizer!r}: the port trains SGD only; AdaGrad "
-            "is ROADMAP.md queue 1"
-        )
+def _check_optimizer(cfg: StepConfig) -> None:
+    if cfg.optimizer not in ("sgd", "adagrad"):
+        raise ValueError(f"optimizer must be sgd|adagrad, got {cfg.optimizer!r}")
 
 
 def make_cached_train_step(
     geo: CacheGeometry, cfg: StepConfig, pooled_width: int = 0, block: int = 1,
 ) -> Callable:
     """The one-device cached train step (cdlrm_tpu make_cached_train_step,
-    step.py:524, no hot tier, SGD).
+    step.py:524, no hot tier; SGD, or AdaGrad on the dedup wire).
 
     Plain wire (``cfg.dedup`` off, ``body`` step.py:632)::
 
@@ -283,18 +330,38 @@ def make_cached_train_step(
         step(params, cache, *per_batch_inputs, blk_slots, blk_counts, lr,
              lr_embeds) -> (params, cache, loss_sum [block], correct [block])
 
-    ``params`` comes back as a new dict (dense SGD); the cache is updated in
-    place, where cdlrm_tpu donates it; ``loss_sum`` and ``correct`` are
-    device tensors, read by the caller when it needs them. One replica means
-    no dense-grad mean (``_sync_dense_grads`` is the identity) and no
-    touched-row mask (cdlrm_tpu's ``track_touched`` is off on one replica).
-    ``lr`` and ``lr_embeds`` are Python floats already rounded to float32."""
-    _check_sgd(cfg.optimizer)
+    With ``cfg.optimizer == 'adagrad'`` (dedup wire only, single steps or
+    scan blocks) the optimizer state rides after the per-batch inputs,
+    ``dense_acc`` (shaped like ``params``) and ``embed_acc`` ([R] float32,
+    one row-wise accumulator per cache row), and comes back updated, as in
+    cdlrm_tpu (step.py:555-558)::
+
+        step(params, cache, *per_batch_inputs, dense_acc, embed_acc, lr,
+             lr_embeds) -> (params, cache, dense_acc, embed_acc, loss_sum,
+                            correct)
+
+    ``params`` (and ``dense_acc``) come back as new dicts; the cache and
+    ``embed_acc`` are updated in place, where cdlrm_tpu donates them;
+    ``loss_sum`` and ``correct`` are device tensors, read by the caller when
+    it needs them. One replica means no dense-grad mean
+    (``_sync_dense_grads`` is the identity) and no touched-row mask
+    (cdlrm_tpu's ``track_touched`` is off on one replica). ``lr`` and
+    ``lr_embeds`` are Python floats already rounded to float32."""
+    _check_optimizer(cfg)
+    adagrad = cfg.optimizer == "adagrad"
+    if adagrad and not cfg.dedup:
+        raise ValueError(
+            "optimizer='adagrad' requires the dedup wire (duplicate-slot "
+            "lookups must be coalesced before the row-wise state update); "
+            "set dedup_lookups='on'"
+        )
     if cfg.block_coalesce:
         if block <= 1:
             raise ValueError("block_coalesce requires a scan block (block > 1)")
         if not cfg.dedup or cfg.wire_pack:
             raise ValueError("block_coalesce requires the UNPACKED dedup wire")
+        if adagrad:
+            raise ValueError("block_coalesce requires optimizer='sgd'")
     trash = geo.trash_row
     offsets = _TableOffsets(geo)
 
@@ -327,7 +394,7 @@ def make_cached_train_step(
             ).to(torch.int32)
             upd_slots = torch.where(flat_slots == trash, spread, flat_slots)
         index_add_rows(cache, upd_slots, drows.contiguous(), alpha=-lr_embeds)
-        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
+        params, _, loss_sum, correct = _finish(cfg, params, dflat, p, loss, targets, lr, b_loc)
         return params, cache, loss_sum, correct
 
     def decode(inv_wire, uniq_wire, uniq_counts, n_lk):
@@ -339,7 +406,11 @@ def make_cached_train_step(
         return _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts)
 
     def body_dedup(params, cache, x, inv_wire, ls_mask, uniq_wire, uniq_counts,
-                   aux_slots, aux_rows, targets, lr, lr_embeds):
+                   aux_slots, aux_rows, targets, *tail):
+        if adagrad:
+            dense_acc, embed_acc, lr, lr_embeds = tail
+        else:
+            (lr, lr_embeds), dense_acc = tail, None
         b_loc = targets.shape[0]
         n_lk = b_loc * max(1, pooled_width)
         targets = targets.to(torch.float32)
@@ -355,12 +426,29 @@ def make_cached_train_step(
             params, rows_u, lambda r: gather_rows(r, ginv), x, ls_mask, targets,
             t_count, b_loc, d,
         )
+        if adagrad:
+            # the row-wise state rides along at the same unique slots
+            # (cdlrm_tpu step.py:789-803). The bucket repeats the trash row,
+            # at position 0 and in the padding; those lanes carry exactly
+            # zero gradients, so each duplicate writes the same value, the
+            # trash row's state unchanged (+ mean(0^2))
+            u_idx = uniq_slots.long()
+            delta, acc_rows = _rowwise_adagrad_scale(
+                d_rows_u, embed_acc[u_idx], lr_embeds, cfg.adagrad_eps
+            )
+            embed_acc[u_idx] = acc_rows
+        else:
+            delta = -lr_embeds * d_rows_u
         # valid unique rows are a prefix of the bucket, [trash, uniq...,
         # trash-pad]: position 0's delta is the masked lanes' gradient,
         # exactly zero; the count stays on the device
         nv = uniq_counts.sum() + 1
-        scatter_add_rows(cache, uniq_slots, -lr_embeds * d_rows_u, nv)
-        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
+        scatter_add_rows(cache, uniq_slots, delta, nv)
+        params, dense_acc, loss_sum, correct = _finish(
+            cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc
+        )
+        if adagrad:
+            return params, cache, dense_acc, embed_acc, loss_sum, correct
         return params, cache, loss_sum, correct
 
     def body_coalesce(params, cache, pend, x, inv_wire, ls_mask, uniq_wire,
@@ -394,7 +482,7 @@ def make_cached_train_step(
         # add lands on that one row
         d_eff = drows * (blk_rank != p_trash)[:, None].to(drows.dtype)
         index_add_rows(pend, blk_rank, d_eff)
-        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
+        params, _, loss_sum, correct = _finish(cfg, params, dflat, p, loss, targets, lr, b_loc)
         return params, cache, pend, loss_sum, correct
 
     if cfg.block_coalesce:
@@ -427,18 +515,23 @@ def make_cached_train_step(
         return single
     n_in = 8 if cfg.dedup else 6
 
+    n_state = 2 if adagrad else 0
+
     def scanned(params, cache, *rest):
-        *flat, lr, lr_embeds = rest
+        # the optimizer state is carried through the block, as cdlrm_tpu's
+        # scan carries it (step.py:1017-1043)
+        flat, state, (lr, lr_embeds) = rest[: -2 - n_state], rest[-2 - n_state: -2], rest[-2:]
         if len(flat) != block * n_in:
             raise ValueError(f"{len(flat)} block inputs, want {block} x {n_in}")
         losses, corrs = [], []
         for j in range(block):
-            params, cache, loss_sum, correct = single(
-                params, cache, *flat[j * n_in: (j + 1) * n_in], lr, lr_embeds
+            params, cache, *out = single(
+                params, cache, *flat[j * n_in: (j + 1) * n_in], *state, lr, lr_embeds
             )
+            *state, loss_sum, correct = out
             losses.append(loss_sum)
             corrs.append(correct)
-        return params, cache, torch.stack(losses), torch.stack(corrs)
+        return (params, cache, *state, torch.stack(losses), torch.stack(corrs))
 
     return scanned
 
@@ -478,30 +571,47 @@ def make_cached_eval_step(
 
 
 def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
-    """Refill (cdlrm_tpu make_refill_step, ``off`` mode with SGD):
-    ``step(cache, insert_slots, insert_rows, evict_slots) -> (cache,
-    evicted [E, D])``. The evicted rows are gathered before the insert, so
-    they carry the values to write back; then the insert sets its rows in
-    place. Both slot buffers are padded to a power-of-two bucket on the host:
-    insert padding targets the trash row (outside the valid prefix, so never
-    written), evict padding reads row 0 and is discarded by the caller."""
+    """Refill (cdlrm_tpu make_refill_step, step.py:1174-1264, ``off``
+    mode)::
+
+        SGD:          step(cache, insert_slots, insert_rows, evict_slots)
+                          -> (cache, evicted [E, D])
+        AdaGrad:      step(..., evict_slots, accum) -> (cache, accum, evicted)
+        master state: step(..., evict_slots, accum, insert_acc)
+                          -> (cache, accum, evicted, ev_acc [E])
+
+    The evicted rows (and, with ``adagrad_master_state``, their row-wise
+    state) are gathered before the insert, so they carry the values to write
+    back; then the insert sets its rows in place, and the inserted slots'
+    state becomes ``insert_acc`` (the ids' state from the host store), or 0
+    under plain AdaGrad, where an inserted slot holds a fresh id. Both slot
+    buffers are padded to a power-of-two bucket on the host: insert padding
+    targets the trash row (outside the rows' valid prefix, so never written;
+    its state is set to the padding's 0, which it already holds), evict
+    padding reads row 0 and is discarded by the caller. ``accum`` is updated
+    in place."""
     if cfg.refill_broadcast not in ("off", False):
         raise NotImplementedError(
             f"refill_broadcast={cfg.refill_broadcast!r} broadcasts between "
             "replicas: multi-GPU data parallelism, ROADMAP.md queue 1"
         )
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer={cfg.optimizer!r}: the refill of row-wise AdaGrad "
-            "state comes with the AdaGrad port, ROADMAP.md queue 1"
-        )
+    _check_optimizer(cfg)
+    adagrad = cfg.optimizer == "adagrad"
+    master_state = adagrad and cfg.adagrad_master_state
 
-    def step(cache, insert_slots, insert_rows, evict_slots):
+    def step(cache, insert_slots, insert_rows, evict_slots, accum=None, insert_acc=None):
         evicted = gather_rows(cache, evict_slots)
+        ev_acc = accum[evict_slots.long()] if master_state else None
         # inserts never target the trash row, so the valid prefix is
         # countable on the device (cdlrm_tpu step.py:1229-1237)
         nv_ins = (insert_slots != trash_row).sum()
         scatter_set_rows(cache, insert_slots, insert_rows, nv_ins)
+        if master_state:
+            accum[insert_slots.long()] = insert_acc
+            return cache, accum, evicted, ev_acc
+        if adagrad:
+            accum[insert_slots.long()] = 0.0
+            return cache, accum, evicted
         return cache, evicted
 
     return step
@@ -514,10 +624,13 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
 
 def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable:
     """Train step with the full embedding tables on the device (cdlrm_tpu
-    make_fulltable_train_step, step.py:1417, one device, SGD)::
+    make_fulltable_train_step, step.py:1417, one device)::
 
-        step(params, tables, offsets, x, ls_i, ls_mask, targets, lr,
-             lr_embeds) -> (params, tables, loss_sum, correct)
+        SGD:     step(params, tables, offsets, x, ls_i, ls_mask, targets, lr,
+                      lr_embeds) -> (params, tables, loss_sum, correct)
+        AdaGrad: step(params, tables, offsets, x, ls_i, ls_mask, targets,
+                      dense_acc, emb_acc, lr, lr_embeds)
+                      -> (params, tables, dense_acc, emb_acc, loss_sum, correct)
 
     ``tables`` is the flat ``[sum(n), D]`` float32 tensor of
     models/embedding.py, updated in place; ``offsets`` its int64 [T] table
@@ -530,10 +643,22 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
     order, as the dense gradient's scatter does), and adds ``-lr * g`` to
     those rows only with ``scatter_add_rows``: the same one subtraction of a
     summed gradient per row, and rows the batch does not touch stay as they
-    are, as ``w - lr * 0`` leaves them."""
-    _check_sgd(cfg.optimizer)
+    are, as ``w - lr * 0`` leaves them.
 
-    def step(params, tables, offsets, x, ls_i, ls_mask, targets, lr, lr_embeds):
+    AdaGrad holds one flat ``[sum(n)]`` row-wise accumulator ``emb_acc``
+    (updated in place) beside the dense ``dense_acc``, and scales the
+    distinct rows' gradients with ``_rowwise_adagrad_scale`` before the same
+    row add. cdlrm_tpu scales every row of each table, but an untouched row
+    has g = 0: its state stays ``acc + 0`` and its delta is 0, so the two
+    agree."""
+    _check_optimizer(cfg)
+    adagrad = cfg.optimizer == "adagrad"
+
+    def step(params, tables, offsets, x, ls_i, ls_mask, targets, *tail):
+        if adagrad:
+            dense_acc, emb_acc, lr, lr_embeds = tail
+        else:
+            (lr, lr_embeds), dense_acc = tail, None
         t_count, b_loc = ls_i.shape[:2]
         # bags are pooled where the lookups have a P axis, as cdlrm_tpu's
         # embedding_forward decides by the index rank
@@ -549,9 +674,21 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
             cfg, pooled_width, params, rows_u, lambda r: gather_rows(r, inv), x,
             ls_mask, targets, t_count, b_loc, tables.shape[1],
         )
+        if adagrad:
+            u_idx = uniq.long()
+            delta, acc_rows = _rowwise_adagrad_scale(
+                d_rows_u, emb_acc[u_idx], lr_embeds, cfg.adagrad_eps
+            )
+            emb_acc[u_idx] = acc_rows
+        else:
+            delta = -lr_embeds * d_rows_u
         nv = torch.full((1,), uniq.shape[0], dtype=torch.int64, device=tables.device)
-        scatter_add_rows(tables, uniq, -lr_embeds * d_rows_u, nv)
-        params, loss_sum, correct = _finish(params, dflat, p, loss, targets, lr, b_loc)
+        scatter_add_rows(tables, uniq, delta, nv)
+        params, dense_acc, loss_sum, correct = _finish(
+            cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc
+        )
+        if adagrad:
+            return params, tables, dense_acc, emb_acc, loss_sum, correct
         return params, tables, loss_sum, correct
 
     return step

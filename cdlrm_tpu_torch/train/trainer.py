@@ -11,13 +11,17 @@ seed give the same masters, weights, probes, wire bytes and window plans as
 cdlrm_tpu, so the two train the same trajectory, and a cdlrm_tpu checkpoint
 serves here unchanged.
 
-Ported: construction, ``train`` (SGD; the plain wire and the packed and
-unpacked dedup wires, chosen per window; scan blocks of ``scan_steps``
-steps, capped at window and cadence boundaries, with the block-coalesced
-update on the unpacked dedup wire; the refill prestager), ``evaluate`` (the
-pipelined ``--inference-only`` path), ``refill`` of one insert plan,
-``load_checkpoint`` and ``close``. What is not, ``_check_slice`` refuses
-(ROADMAP.md queue 1 names where each comes).
+Ported: construction, ``train`` (SGD, and AdaGrad with its row-wise state
+beside the cache, optionally round-tripped through the host
+``AccumulatorStore``; the plain wire and the packed and unpacked dedup
+wires, chosen per window; scan blocks of ``scan_steps`` steps, capped at
+window and cadence boundaries, with the block-coalesced update on the
+unpacked dedup wire; the refill prestager; the checkpoint cadence),
+``evaluate`` (the pipelined ``--inference-only`` path), ``refill`` of one
+insert plan, ``save_checkpoint`` (cdlrm_tpu's single-host format v3,
+optionally written on a background thread), ``load_checkpoint`` and
+``close``. What is not, ``_check_slice`` refuses (ROADMAP.md queue 1 names
+where each comes).
 
 Ordering on the card: every step, refill and staging copy runs on the
 device's default stream, and the host-to-device copies of the pipeline and
@@ -46,7 +50,7 @@ import torch
 
 from cdlrm_tpu.cache.geometry import CacheGeometry
 from cdlrm_tpu.cache.host_cache import HostCacheController, InsertPlan, build_insert_plan
-from cdlrm_tpu.cache.master import MasterTables, VirtualMasterTables
+from cdlrm_tpu.cache.master import AccumulatorStore, MasterTables, VirtualMasterTables
 from cdlrm_tpu.cache.prefetcher import EvictionManager, LookaheadPrefetcher, WindowData
 from cdlrm_tpu.config import Config
 from cdlrm_tpu.data.synthetic import Batch
@@ -54,7 +58,7 @@ from cdlrm_tpu.ops import native
 from cdlrm_tpu.utils.metrics import StreamingAUC, accuracy_count
 from cdlrm_tpu.utils.padding import pad_to_bucket, pow2_bucket
 from cdlrm_tpu_torch.config import jax_free_host
-from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax
+from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax, params_to_jax
 from cdlrm_tpu_torch.train import step as step_lib
 
 # checkpoint layout versions this loader reads (cdlrm_tpu save_checkpoint)
@@ -169,7 +173,10 @@ class _WindowStager(threading.Thread):
                 staged = None
                 if window.plan_spec is not None:
                     plan = build_insert_plan(window.plan_spec, window.rows, tr.geo.dim)
-                    staged = (plan, tr._refill_device_inputs(plan))
+                    # stage_acc=False: the resume accumulators are gathered
+                    # at the boundary, behind the eviction fence
+                    # (_complete_staged_acc)
+                    staged = (plan, tr._refill_device_inputs(plan, stage_acc=False))
                 if not self._put((window, staged)):
                     return
         except BaseException as e:
@@ -194,6 +201,60 @@ class _WindowStager(threading.Thread):
             pass
 
 
+def _write_npz(path: str, payload: dict) -> None:
+    np.savez(path, **payload)
+
+
+def _write_pickle(path: str, obj) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+class CheckpointWriter:
+    """The write phase of a checkpoint save (cdlrm_tpu trainer.py:2352-2374):
+    ``(fn, path, data)`` writes over a snapshot that the train thread took,
+    run in place or, with ``checkpoint_async``, on a thread of its own. The
+    thread is not a daemon, so a process exit that bypasses ``close()``
+    waits for the files instead of cutting one short. :meth:`join` waits
+    for an outstanding writer and re-raises its error; save, load and close
+    call it. ``write_s`` is the last write phase's wall time."""
+
+    def __init__(self):
+        self.thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.write_s = 0.0
+
+    def run(self, writes: list, background: bool) -> None:
+        def run_writes():
+            t0 = time.perf_counter()
+            try:
+                for fn, path, data in writes:
+                    fn(path, data)
+            except BaseException as e:  # raised at the next join
+                self._error = e
+            finally:
+                self.write_s = time.perf_counter() - t0
+
+        self._error = None
+        if background:
+            self.thread = threading.Thread(target=run_writes, name="ckpt-writer", daemon=False)
+            self.thread.start()
+            return
+        run_writes()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def join(self) -> None:
+        if self.thread is None:
+            return
+        self.thread.join()
+        self.thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError(f"async checkpoint write failed: {err!r}") from err
+
+
 def _check_slice(cfg: Config) -> None:
     """Refuse the config fields this port does not implement yet, rather
     than ignore them (ROADMAP.md queue 1 names where each comes)."""
@@ -204,11 +265,8 @@ def _check_slice(cfg: Config) -> None:
         "qr_flag (QR tables, full-table path)": cfg.qr_flag,
         "wire_rows_bf16": cfg.wire_rows_bf16,
         "wire_x_fp8": cfg.wire_x_fp8,
-        "optimizer other than sgd (AdaGrad)": cfg.optimizer != "sgd",
         "hot_tier_rows > 0 (hot tier)": cfg.hot_tier_rows > 0,
         "sorted_dedup_wire": cfg.sorted_dedup_wire,
-        "save_model (checkpoint save)": bool(cfg.save_model),
-        "checkpoint_freq > 0 (checkpoint save)": cfg.checkpoint_freq > 0,
         "enable_profiling": cfg.enable_profiling,
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -277,6 +335,23 @@ class CachedDlrmTrainer:
         self.cache = torch.zeros(
             (self.geo.total_rows, self.geo.dim), dtype=torch.float32, device=self.device
         )
+        # AdaGrad state (cdlrm_tpu trainer.py:381-419): one row-wise
+        # accumulator per cache row, on the device beside the cache, and one
+        # dense accumulator per parameter; SGD carries none
+        self._adagrad = cfg.optimizer == "adagrad"
+        self.embed_acc = self.dense_acc = None
+        if self._adagrad:
+            self.embed_acc = torch.zeros(self.geo.total_rows, dtype=torch.float32,
+                                         device=self.device)
+            self.dense_acc = {k: [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in v]
+                              for k, v in self.params.items()}
+        # adagrad_master_state: evicted ids' row-wise state writes back to
+        # this host store with their rows, and inserted ids resume it
+        self._acc_master = (
+            AccumulatorStore(cfg.ln_emb) if self._adagrad and cfg.adagrad_master_state
+            else None
+        )
+        self._ckpt_writer = CheckpointWriter()
 
         # wire choice per window (cdlrm_tpu trainer.py:446-460): 'on' always
         # takes the dedup wire (packed or unpacked as the slot wire is),
@@ -318,6 +393,8 @@ class CachedDlrmTrainer:
             inv_bits=self._inv_bits,
             uniq_bits=self._wire_bits,
             optimizer=cfg.optimizer,
+            adagrad_eps=cfg.adagrad_eps,
+            adagrad_master_state=cfg.adagrad_master_state,
         )
         self.step_cfg = scfg
         self._step_cache: dict = {}  # (size, dedup, coalesce) -> step (_get_step)
@@ -352,6 +429,7 @@ class CachedDlrmTrainer:
             average_on_writeback=cfg.average_on_writeback,
             timeout=cfg.eviction_fifo_timeout,
             pin_core=cfg.main_start_core + 2 if cfg.pin_cores else None,
+            acc_store=self._acc_master,
         )
         self.prefetcher: Optional[LookaheadPrefetcher] = None
         self._pipeline_started = False
@@ -411,24 +489,65 @@ class CachedDlrmTrainer:
             yield batch.ls_i if batch.ls_mask is None else (batch.ls_i, batch.ls_mask)
 
     # ------------------------------------------------------------------ refill
-    def _refill_device_inputs(self, plan: InsertPlan):
+    def _refill_device_inputs(self, plan: InsertPlan, stage_acc: bool = True):
         """The refill step's operands for an insert plan, padded to
         power-of-two buckets on the host (insert padding -> the trash row,
         evict padding -> row 0) and copied to the device. The one place the
-        padding lives: the boundary and the _WindowStager both stage here."""
-        return (
+        padding lives: the boundary and the _WindowStager both stage here.
+
+        With ``adagrad_master_state`` the inserted ids' accumulators ride as
+        a fourth operand, gathered from the store behind the eviction
+        fence (cdlrm_tpu trainer.py:748-798): an id evicted at one boundary
+        can come back at the next, and its state must include every
+        writeback queued before. ``stage_acc=False`` (the _WindowStager,
+        which runs beside the previous boundary and could fence before that
+        boundary's evictions are even queued) leaves the fourth operand to
+        :meth:`_complete_staged_acc` at the boundary."""
+        ops = (
             self._to_device(pad_to_bucket(plan.insert_slots, self.geo.trash_row)),
             self._to_device(pad_to_bucket(plan.insert_rows, 0.0)),
             self._to_device(pad_to_bucket(plan.evict_slots, 0)),
         )
+        if self._acc_master is not None and stage_acc:
+            ops = self._complete_staged_acc(plan, ops)
+        return ops
+
+    def _complete_staged_acc(self, plan: InsertPlan, d_inputs):
+        """Add the resume accumulators to a staged operand tuple, on the
+        train thread: the eviction fence, then the store gather (cdlrm_tpu
+        trainer.py:837-851). The fence also quiesces the writer, so the
+        unlocked gather reads stable arrays. No-op without
+        ``adagrad_master_state`` or when the operand already rides."""
+        if self._acc_master is None or len(d_inputs) == 4:
+            return d_inputs
+        self.eviction_manager.flush()
+        acc = self._acc_master.gather(plan.insert_tables, plan.insert_ids)
+        return tuple(d_inputs) + (self._to_device(pad_to_bucket(acc, 0.0)),)
+
+    def _run_refill(self, d_inputs):
+        """The refill step in this trainer's form (SGD, AdaGrad, master
+        state); returns (evicted rows, evicted accumulators or None)."""
+        if self._acc_master is not None:
+            self.cache, self.embed_acc, evicted, ev_acc = self.refill_step(
+                self.cache, *d_inputs[:3], self.embed_acc, d_inputs[3]
+            )
+            return evicted, ev_acc
+        if self._adagrad:
+            self.cache, self.embed_acc, evicted = self.refill_step(
+                self.cache, *d_inputs, self.embed_acc
+            )
+            return evicted, None
+        self.cache, evicted = self.refill_step(self.cache, *d_inputs)
+        return evicted, None
 
     def refill(self, plan: InsertPlan) -> np.ndarray:
         """Apply one insert plan (``self.controller.plan_insert``, which has
         already updated the occupancy) to the device cache through the refill
         step. Returns the evicted rows [E, D], their values before the
-        insert, for the caller to write back to the masters."""
+        insert, for the caller to write back to the masters (the evicted
+        accumulators of ``adagrad_master_state`` are dropped here)."""
         t0 = time.perf_counter()
-        self.cache, evicted = self.refill_step(self.cache, *self._refill_device_inputs(plan))
+        evicted, _ = self._run_refill(self._refill_device_inputs(plan))
         out = evicted[: plan.evict_slots.shape[0]].cpu().numpy()
         self.metrics.caching_overhead_s += time.perf_counter() - t0
         self.metrics.refills += 1
@@ -456,14 +575,16 @@ class CachedDlrmTrainer:
 
     def _apply_refill(self, window: WindowData, staged=None) -> None:
         """Refill at a window boundary (cdlrm_tpu trainer.py:884-969, one
-        host, SGD): replay the shadow-planned occupancy change, run the refill
-        step (evicted rows are gathered before the insert), and queue the
-        evicted rows for writeback."""
+        host): replay the shadow-planned occupancy change, run the refill
+        step (evicted rows, and with ``adagrad_master_state`` their state,
+        are gathered before the insert), and queue them for writeback."""
         t0 = time.perf_counter()
         if staged is not None:
             # prestaged by the _WindowStager: plan joined, operands on the
-            # device; only the occupancy replay is left
+            # device; the occupancy replay and, with adagrad_master_state,
+            # the fenced resume-accumulator gather are left
             plan, d_inputs = staged
+            d_inputs = self._complete_staged_acc(plan, d_inputs)
             self.controller.apply_plan_spec(window.plan_spec)
         else:
             if window.plan_spec is not None:
@@ -473,12 +594,15 @@ class CachedDlrmTrainer:
                 plan = self.controller.plan_insert(window.uniques, window.rows)
             d_inputs = self._refill_device_inputs(plan)
         self._apply_window_stats(window)
-        self.cache, evicted = self.refill_step(self.cache, *d_inputs)
+        evicted, ev_acc = self._run_refill(d_inputs)
         n_evict = plan.evict_slots.shape[0]
         if n_evict:
-            self.eviction_fifo.put(
-                (plan.evict_tables, plan.evict_idxs, self._deferred_host(evicted[:n_evict]))
-            )
+            item = (plan.evict_tables, plan.evict_idxs, self._deferred_host(evicted[:n_evict]))
+            if ev_acc is not None:
+                # the evicted state leaves by the same deferred copy; the
+                # EvictionManager writes a fourth element to the store
+                item += (self._deferred_host(ev_acc[:n_evict]),)
+            self.eviction_fifo.put(item)
         self.metrics.caching_overhead_s += time.perf_counter() - t0
         self.metrics.refills += 1
 
@@ -864,6 +988,8 @@ class CachedDlrmTrainer:
                 ):
                     log_fn(f"MLPerf threshold reached (acc={acc:.5f}, auc={auc:.5f}); stopping")
                     self._stop_requested = True
+            if cfg.checkpoint_freq > 0 and cfg.save_model and j % cfg.checkpoint_freq == 0:
+                self.save_checkpoint(cfg.save_model)
 
         def cadence_dist(j, f):
             return f - (j % f) if f and f > 0 else 1 << 30
@@ -871,7 +997,7 @@ class CachedDlrmTrainer:
         def block_cap():
             """The largest block from the current step that crosses no
             cadence boundary, so every cadence fires at its global step (one
-            device: no aggregation cadence; checkpoint saves are refused)."""
+            device: no aggregation cadence)."""
             j = self.global_step
             cap = self._scan_block
             if max_steps is not None:
@@ -879,9 +1005,26 @@ class CachedDlrmTrainer:
             cap = min(cap, cadence_dist(j, cfg.print_freq))
             if self.test_dataset is not None and cfg.test_freq > 0:
                 cap = min(cap, cadence_dist(j, cfg.test_freq))
+            if cfg.checkpoint_freq > 0 and cfg.save_model:
+                cap = min(cap, cadence_dist(j, cfg.checkpoint_freq))
             return max(1, cap)
 
         wire_dedup = None  # wire of the batches since the last boundary
+
+        def run_step(step, args):
+            """Call a train step with the optimizer state after the batch
+            inputs, and keep what it returns (cdlrm_tpu
+            trainer.py:1951-1999); returns (loss_sum, correct)."""
+            if not self._adagrad:
+                self.params, self.cache, loss, corr = step(
+                    self.params, self.cache, *args, self._lr, self._lr_emb
+                )
+                return loss, corr
+            (self.params, self.cache, self.dense_acc, self.embed_acc, loss, corr) = step(
+                self.params, self.cache, *args, self.dense_acc, self.embed_acc,
+                self._lr, self._lr_emb,
+            )
+            return loss, corr
 
         def run_block(items):
             """Run len(items) consecutive steps: one step, or a scan block,
@@ -899,10 +1042,7 @@ class CachedDlrmTrainer:
                 it[3].commit(self.metrics)
             if len(items) == 1:
                 cursor, _, inputs, _, _, _ = items[0]
-                self.params, self.cache, loss_sum, correct = self._get_step(1, dedup)(
-                    self.params, self.cache, *inputs, self._lr, self._lr_emb,
-                )
-                pending.append((loss_sum, correct))
+                pending.append(run_step(self._get_step(1, dedup), inputs))
                 after_step(cursor)
                 return
             coalesce = dedup and self._block_coalesce and all(it[5] is not None for it in items)
@@ -913,9 +1053,7 @@ class CachedDlrmTrainer:
                 args += [blk_slots, blk_counts]
             else:
                 args = [a for it in items for a in it[2]]
-            self.params, self.cache, loss_v, corr_v = step(
-                self.params, self.cache, *args, self._lr, self._lr_emb,
-            )
+            loss_v, corr_v = run_step(step, args)
             for i, it in enumerate(items):
                 pending.append((loss_v[i], corr_v[i]))
                 after_step(it[0])
@@ -1082,13 +1220,84 @@ class CachedDlrmTrainer:
         except TypeError:
             self.master.load(file_path)  # loaders without dirty support
 
+    def save_checkpoint(self, path: str) -> None:
+        """Save the training state in cdlrm_tpu's single-host format v3
+        (cdlrm_tpu trainer.py:2250-2386), which either package loads.
+
+        A snapshot phase on the train thread flushes the eviction fifo (the
+        masters must hold every evicted row), copies the device state to the
+        host and copies the dirty master rows and the occupancy; then the
+        write phase serializes the snapshot, on a background thread with
+        ``checkpoint_async`` (:class:`CheckpointWriter`), so training may go
+        on meanwhile. Files: ``meta.pkl`` (format_version, global_step,
+        rng_state, cursor), ``dense_params.npz`` and, under AdaGrad,
+        ``dense_acc.npz`` (``leaf_i`` in tree_flatten order), ``cache.npy``,
+        ``embed_acc.npy``, ``touched.npy`` (all False: one device has no
+        pending aggregation, and cdlrm_tpu's loader reads it),
+        ``acc_store.npz`` with ``adagrad_master_state``, ``occupancy.npz``
+        and ``master.npz``: the dirty rows, or the full save for
+        ``checkpoint_masters='full'`` and for masters without dirty tracking
+        (virtual masters), written on the train thread."""
+        self._ckpt_writer.join()
+        os.makedirs(path, exist_ok=True)
+        if not self.eviction_manager.flush(timeout=self.cfg.eviction_fifo_timeout):
+            raise RuntimeError(
+                "eviction writeback flush timed out; checkpoint would miss "
+                "in-flight evicted rows (raise --eviction-fifo-timeout)"
+            )
+        writes: list = []
+
+        def host(t: torch.Tensor) -> np.ndarray:
+            # a copy even on the CPU, where .cpu() would alias the live state
+            return t.to("cpu", copy=True).numpy()
+
+        def leaves(params) -> dict:
+            return {f"leaf_{i}": a for i, a in enumerate(params_to_jax(params))}
+
+        def npy(name, arr):
+            writes.append((np.save, os.path.join(path, name), arr))
+
+        def npz(name, payload):
+            writes.append((_write_npz, os.path.join(path, name), payload))
+
+        npy("cache.npy", host(self.cache))
+        npy("touched.npy", np.zeros(self.geo.total_rows, dtype=bool))
+        if self._adagrad:
+            npy("embed_acc.npy", host(self.embed_acc))
+        if self._acc_master is not None:
+            # the store's nonzero support; payload() copies
+            npz("acc_store.npz", self._acc_master.payload())
+        if self.cfg.checkpoint_masters == "dirty" and hasattr(self.master, "dirty_payload"):
+            # the dirty rows copied now: writebacks may resume meanwhile
+            npz("master.npz", self.master.dirty_payload(self._init_token()))
+        else:
+            # the full dump has no snapshot form: written here
+            self.master.save(os.path.join(path, "master.npz"))
+        npz("dense_params.npz", leaves(self.params))
+        if self._adagrad:
+            npz("dense_acc.npz", leaves(self.dense_acc))
+        # state_dict returns the live occupancy arrays
+        npz("occupancy.npz", {k: np.copy(v) for k, v in self.controller.state_dict().items()})
+        meta = {
+            "format_version": CHECKPOINT_FORMAT_VERSION,
+            "global_step": self.global_step,
+            "rng_state": self.controller.rng.bit_generator.state,
+            "cursor": self._cursor,
+        }
+        writes.append((_write_pickle, os.path.join(path, "meta.pkl"), meta))
+        self._ckpt_writer.run(writes, background=self.cfg.checkpoint_async)
+
     def load_checkpoint(self, path: str) -> None:
-        """Load a single-host cdlrm_tpu checkpoint (meta.pkl,
-        dense_params.npz, cache.npy, occupancy.npz, master.npz) and its data
-        cursor, so that training resumes where it stopped. AdaGrad
-        accumulators in the checkpoint are left unread (the port trains and
-        serves with SGD), and the touched-row mask is aggregation state that
-        one device never needs."""
+        """Load a single-host checkpoint of either package (meta.pkl,
+        dense_params.npz, cache.npy, occupancy.npz, master.npz, and the
+        AdaGrad state) and its data cursor, so that training resumes where
+        it stopped. It raises cdlrm_tpu's errors (trainer.py:2425-2469) when
+        the checkpoint's optimizer state does not fit this run: AdaGrad state
+        under an SGD training run (``--inference-only`` loads it: serving
+        never reads it), no AdaGrad state under AdaGrad, no accumulator
+        store under ``adagrad_master_state``. The touched-row mask is
+        aggregation state that one device never needs."""
+        self._ckpt_writer.join()
         if self._pipeline_started:
             raise RuntimeError(
                 "load_checkpoint after training started: the stream cursor "
@@ -1113,6 +1322,35 @@ class CachedDlrmTrainer:
                 f"checkpoint cache {cache0.shape} != this geometry's "
                 f"{tuple(self.cache.shape)} (one replica; saved with world_size=1?)"
             )
+        acc_path = os.path.join(path, "embed_acc.npy")
+        if not self._adagrad and os.path.exists(acc_path) and not self.cfg.inference_only:
+            raise ValueError(
+                f"{path!r} carries AdaGrad optimizer state but this run is "
+                "optimizer='sgd'; resuming would silently drop the "
+                "accumulators: pass --optimizer adagrad (or "
+                "--inference-only for serving)"
+            )
+        if self._adagrad:
+            if not os.path.exists(acc_path):
+                raise ValueError(
+                    f"optimizer='adagrad' but {path!r} carries no optimizer "
+                    "state (saved by an SGD run?); resume with the matching "
+                    "optimizer"
+                )
+            store_path = os.path.join(path, "acc_store.npz")
+            if self._acc_master is not None and not os.path.exists(store_path):
+                raise ValueError(
+                    f"adagrad_master_state set but {path!r} carries no "
+                    "accumulator store (saved without the flag?); resume "
+                    "with the matching setting"
+                )
+            self.embed_acc = torch.from_numpy(np.load(acc_path)).to(self.device)
+            with np.load(os.path.join(path, "dense_acc.npz")) as data:
+                acc_leaves = [data[f"leaf_{i}"] for i in range(n_leaves)]
+            self.dense_acc = params_from_jax(acc_leaves, n_bot=n_bot, device=self.device)
+            if self._acc_master is not None:
+                with np.load(store_path) as data:
+                    self._acc_master.load_payload(data)
         self.cache = torch.from_numpy(cache0).to(self.device)
         with np.load(os.path.join(path, "occupancy.npz")) as data:
             self.controller.load_state_dict(dict(data))
@@ -1122,19 +1360,31 @@ class CachedDlrmTrainer:
         self._cursor = tuple(meta.get("cursor", (0, 0)))
 
     def close(self) -> None:
-        if self._metrics_fp is not None:
-            self._metrics_fp.close()
-            self._metrics_fp = None
-        if self._pipeline_started:
-            threads = [t for t in (self._pipe, self._stager, self.prefetcher) if t is not None]
-            for t in threads:
-                t.stop()
-            self.eviction_fifo.put(None)
-            # join them: a daemon thread still inside a CUDA call when the
-            # interpreter exits aborts the process
-            for t in threads + [self.eviction_manager]:
-                if t.ident is not None:
-                    t.join(timeout=60)
+        # the checkpoint writer first (its error must surface), and its
+        # raise must not skip the shutdown below
+        try:
+            self._ckpt_writer.join()
+        finally:
+            if self._metrics_fp is not None:
+                self._metrics_fp.close()
+                self._metrics_fp = None
+            if self._pipeline_started:
+                threads = [t for t in (self._pipe, self._stager, self.prefetcher)
+                           if t is not None]
+                for t in threads:
+                    t.stop()
+                self.eviction_fifo.put(None)
+                # join them: a daemon thread still inside a CUDA call when
+                # the interpreter exits aborts the process. stop() drains a
+                # thread's queue once, but the put it wakes can fill the
+                # queue again (a fifo of one) and block the thread's final
+                # sentinel put: drain again until it exits
+                deadline = time.monotonic() + 60
+                for t in threads + [self.eviction_manager]:
+                    while t.ident is not None and t.is_alive() and time.monotonic() < deadline:
+                        t.join(timeout=0.05)
+                        if t in threads:
+                            t.stop()
 
 
 def _pad_batch(batch: Batch, to_size: int) -> Batch:

@@ -6,27 +6,33 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from csrc/row_ops.cu and checks each one against
-its plain PyTorch version at the main path's shapes and times both (the row
-gather, set and add bit-exact; the duplicate-slot row add within a stated
-tolerance of a float64 reference). Then it drives the port's main paths at
-the full width of the headline model (26 tables x 250,000 rows, dim 128,
-bottom MLP 13-512-256-128, top MLP 512-256-1, cache 16,384 sets x 8 ways,
-batch 4096, bfloat16): cached serving; cached training in two runs of 30
-steps at lookahead 2, one with the default flags (the wire chosen per window,
-here the plain wire) and one on the packed dedup wire; cached training with
-bench.py's flags (scan blocks of 10, the unpacked wires, lookahead 20) on
-bench.py's loguniform id stream in two runs of 40 counted steps, (c) with
-the block-coalesced update and (d) without; and full-table training with the
-tables on the card. Each run resets every kernel's launch count just before
-it and reads them just after. One serving batch, one train step of each
-cached run, one coalesced block and one full-table step are checked against
-the same inputs run through the port on the CPU. Last it runs the port's
-CLI: serving, training, coalesced scan blocks and the full-table trainer.
-Any failed phase raises, and the script exits non-zero without printing a
-result; with no CUDA device it exits 1 at once. The last line of standard
-output is a JSON object ``{"ok": true, "device": {...}}``; the line before it
-is the card's name and power limit, and the line before that the per-kernel
-JSON summary.
+its plain PyTorch version at the main path's shapes and times both in
+interleaved rounds (the row gather, set and add bit-exact; the
+duplicate-slot row add within a stated tolerance of a float64 reference).
+Then it drives the port's main paths at the full width of the headline model
+(26 tables x 250,000 rows, dim 128, bottom MLP 13-512-256-128, top MLP
+512-256-1, cache 16,384 sets x 8 ways, batch 4096, bfloat16): cached
+serving; cached training in two runs of 30 steps at lookahead 2, one with
+the default flags (the wire chosen per window, here the plain wire) and one
+on the packed dedup wire; cached training with bench.py's flags (scan blocks
+of 10, the unpacked wires, lookahead 20) on bench.py's loguniform id stream
+in two runs of 40 counted steps, (c) with the block-coalesced update and (d)
+without; full-table training with the tables on the card; cached AdaGrad in
+two runs of 30 steps on the packed dedup wire, the cache cut to 2,048 sets
+so that windows evict, (e) with the master state, whose checkpoint is saved
+asynchronously, loaded bit-equal into a fresh trainer and trained on, and
+(f) without; and full-table AdaGrad, saved and loaded bit-equal. Each run
+resets every kernel's launch count just before it and reads them just after.
+One serving batch, one train step of each cached run, one coalesced block,
+one full-table step and one full-table AdaGrad step are checked against the
+same inputs run through the port on the CPU. Last it runs the port's CLI:
+serving, training, coalesced scan blocks, the full-table trainer, and
+AdaGrad training that saves a checkpoint, then serving from it and training
+resumed from it. Any failed phase raises, and the script exits non-zero
+without printing a result; with no CUDA device it exits 1 at once. The last
+line of standard output is a JSON object ``{"ok": true, "device": {...}}``;
+the line before it is the card's name and power limit, and the line before
+that the per-kernel JSON summary.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,7 +61,23 @@ TRAIN_STEPS, TRAIN_WARM_STEPS, LOOKAHEAD = 30, 4, 2
 BLOCK_STEPS, BLOCK_WARM_STEPS, BLOCK_LOOKAHEAD, SCAN_STEPS = 40, 10, 20, 10
 CHECK_BLOCK = 2  # steps in the coalesced block held against the CPU
 FT_STEPS, FT_EVAL_BATCHES = 10, 2  # full-table training, then eval
+# AdaGrad (phases 7 and 8): cdlrm_tpu warns above a learning rate of 0.2
+# (config.py:517-535). Phase 7 cuts the cache to 2,048 sets x 8 ways (cache
+# geometry, not model width), so that from about the third window on every
+# refill evicts about 8k rows per table with their state; the loaded
+# trainer of the checkpoint round trip trains AG_RESUME_STEPS more steps
+AG_LR, AG_CACHE_SETS, AG_RESUME_STEPS, FT_AG_STEPS = 0.01, 2_048, 4, 5
+# The AdaGrad step held against the CPU computes in float32.
+# AdaGrad divides each update by the root of its accumulated squares, so a
+# bf16 rounding that differs between card and CPU in a small gradient moves
+# the update by up to the learning rate (bf16 steps at lr 0.01 differed by up
+# to 2.4e-3 of the 5e-3 tolerance on an H100). The bf16 forward and backward
+# are held against the CPU in phases 4-6; the optimizer math is float32 in
+# either dtype
 TIMING_REPS = 25
+# each kernel and its plain version are timed in interleaved rounds of
+# TIMING_REPS launches, kernel first in even rounds and plain first in odd
+TIMING_ROUNDS = 6
 # serving scores (probabilities) and one train step's caches, parameters and
 # loss on the card vs the CPU: both round the same operands to bf16 and
 # accumulate in float32, so they differ by summation order (and, for the
@@ -94,6 +117,41 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
+def time_pair(name: str, card: str, kernel, plain, what: str = "kernel/plain") -> tuple:
+    """A kernel and its plain version (or any two calls) in TIMING_ROUNDS
+    interleaved rounds (kernel, plain; plain, kernel; ...), each a time_ms
+    median. Prints the per-round ratios; returns the medians of both over
+    the rounds."""
+    ks, ps = [], []
+    for r in range(TIMING_ROUNDS):
+        for fn, out in ((kernel, ks), (plain, ps))[:: 1 if r % 2 == 0 else -1]:
+            out.append(time_ms(fn))
+    ratios = [k / p for k, p in zip(ks, ps)]
+    first, second = what.split("/")
+    print(f"[{card}] {name} {what} per round: "
+          + ", ".join(f"{r:.3f}" for r in ratios)
+          + f"; median {statistics.median(ratios):.3f} (range {min(ratios):.3f}-"
+          f"{max(ratios):.3f}); {first} ms {', '.join(f'{k:.4f}' for k in ks)}; {second} ms "
+          f"{', '.join(f'{p:.4f}' for p in ps)}")
+    return statistics.median(ks), statistics.median(ps)
+
+
+def add_timer(obj, name: str) -> list:
+    """Wrap the method ``obj.name`` so that every call adds its host wall
+    time to the one-element list returned."""
+    spent, fn = [0.0], getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+    return spent
+
+
 KERNELS = ("gather_rows", "scatter_set_rows", "scatter_add_rows", "index_add_rows")
 
 
@@ -118,12 +176,14 @@ def headline_config(**kw):
     from cdlrm_tpu.config import Config
     from cdlrm_tpu_torch.config import finalize
 
-    return finalize(Config(
+    base = dict(
         arch_sparse_feature_size=DIM, arch_mlp_bot=BOT_MLP, arch_mlp_top=TOP_MLP,
         mini_batch_size=BATCH, world_size=1, cache_size=CACHE_SETS, num_ways=WAYS,
         loss_function="bce", round_targets=True, compute_dtype="bfloat16",
-        master_init="virtual", numpy_rand_seed=SEED, **kw,
-    ), ln_emb=np.full(TABLES, ROWS, dtype=np.int64))
+        master_init="virtual", numpy_rand_seed=SEED,
+    )
+    base.update(kw)
+    return finalize(Config(**base), ln_emb=np.full(TABLES, ROWS, dtype=np.int64))
 
 
 def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
@@ -153,8 +213,8 @@ def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
         c = torch.randn((5000, d), generator=g, device=dev)
         s = torch.randint(0, 5000, (3001,), generator=g, device=dev, dtype=torch.int32)
         assert torch.equal(gather_rows(c, s), gather_rows_ref(c, s)), f"gather_rows D={d}"
-    ms = time_ms(lambda: gather_rows(cache, slots))
-    plain_ms = time_ms(lambda: gather_rows_ref(cache, slots))
+    ms, plain_ms = time_pair("gather_rows", card, lambda: gather_rows(cache, slots),
+                             lambda: gather_rows_ref(cache, slots))
     gbytes = 2 * n * DIM * 4 / 1e9
     print(f"[{card}] gather_rows N={n} from [{rows}, {DIM}]: kernel {ms:.4f} ms "
           f"({gbytes / ms * 1e3:.1f} GB/s effective, {gbytes * 1e3:.1f} MB moved), "
@@ -188,8 +248,9 @@ def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
         err_set = max(err_set, set_case(*case)[2])
     err_set = max(err_set, set_case(torch.randn((3000, 6), generator=g, device=dev), 512, 300)[2])
     nv_dev = torch.tensor(nv, dtype=torch.int64, device=dev)
-    ms = time_ms(lambda: scatter_set_rows(cache, s_main, rows_main, nv_dev))
-    plain_ms = time_ms(lambda: scatter_set_rows_ref(cache, s_main, rows_main, nv))
+    ms, plain_ms = time_pair(
+        "scatter_set_rows", card, lambda: scatter_set_rows(cache, s_main, rows_main, nv_dev),
+        lambda: scatter_set_rows_ref(cache, s_main, rows_main, nv))
     gbytes = 2 * nv * DIM * 4 / 1e9
     print(f"[{card}] scatter_set_rows U={u} nvalid={nv} into [{rows}, {DIM}]: kernel "
           f"{ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s effective, {gbytes * 1e3:.1f} MB moved), "
@@ -221,8 +282,9 @@ def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
     for case in ((small, 4096, 3000), (small, 4096, 4096, True), (small, 999, 0)):
         err_add = max(err_add, add_case(*case)[2])
     err_add = max(err_add, add_case(torch.randn((3000, 6), generator=g, device=dev), 512, 300)[2])
-    ms = time_ms(lambda: scatter_add_rows(cache, s_add, delta_add, nv_dev))
-    plain_ms = time_ms(lambda: scatter_add_rows_ref(cache, s_add, delta_add, nv))
+    ms, plain_ms = time_pair(
+        "scatter_add_rows", card, lambda: scatter_add_rows(cache, s_add, delta_add, nv_dev),
+        lambda: scatter_add_rows_ref(cache, s_add, delta_add, nv))
     gbytes = 3 * nv * DIM * 4 / 1e9
     print(f"[{card}] scatter_add_rows U={u} nvalid={nv} into [{rows}, {DIM}]: kernel "
           f"{ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s effective, {gbytes * 1e3:.1f} MB moved), "
@@ -258,8 +320,9 @@ def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
                               (torch.randn((3000, 6), generator=g, device=dev), 2048, 300, 1.0)):
         e, ep = dup_case(c0, nn, hi, alpha)[2:]
         err_dup, err_plain = max(err_dup, e), max(err_plain, ep)
-    ms = time_ms(lambda: index_add_rows(cache, s_dup, src_dup, lr_emb))
-    plain_ms = time_ms(lambda: index_add_rows_ref(cache, s_dup, src_dup, lr_emb))
+    ms, plain_ms = time_pair(
+        "index_add_rows", card, lambda: index_add_rows(cache, s_dup, src_dup, lr_emb),
+        lambda: index_add_rows_ref(cache, s_dup, src_dup, lr_emb))
     gbytes = 3 * n * DIM * 4 / 1e9
     print(f"[{card}] index_add_rows N={n} (slots < 60,000) into [{rows}, {DIM}]: kernel "
           f"{ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s effective), plain version (scale, then "
@@ -337,7 +400,8 @@ def run_cli(dev: torch.device) -> None:
     training runs, each evaluating after it: the default flags, coalesced
     scan blocks on the unpacked dedup wire (forced on: the random stream is
     near-unique, so 'auto' would take the plain wire), and the full-table
-    trainer."""
+    trainer; then AdaGrad on the dedup wire: a training run that saves a
+    checkpoint, serving from it, and training resumed from it."""
     common = [
         sys.executable, "-m", "cdlrm_tpu_torch.cli", "--device", dev.type,
         "--data-generation", "random",
@@ -346,16 +410,79 @@ def run_cli(dev: torch.device) -> None:
         "--mini-batch-size", "64", "--num-batches", "10", "--cache-size", "128",
         "--num-ways", "4", "--loss-function", "bce", "--round-targets",
     ]
-    for extra, want in ((["--inference-only"], "Test accuracy"),
-                        (["--lookahead", "2", "--print-freq", "5"], "Step 10:"),
-                        (["--scan-steps", "4", "--no-pack-wire", "--dedup-lookups", "on",
-                          "--lookahead", "8", "--print-freq", "5"], "Step 10:"),
-                        (["--no-use-cache", "--print-freq", "5"], "Epoch 0: 5/")):
-        res = subprocess.run(common + extra, cwd=REPO, capture_output=True, text=True,
-                             timeout=300)
-        if res.returncode != 0 or want not in res.stdout or "Test accuracy" not in res.stdout:
-            raise RuntimeError(f"CLI failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        print("cli:", " | ".join(res.stdout.strip().splitlines()[-2:]))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        adagrad = ["--optimizer", "adagrad", "--dedup-lookups", "on", "--learning-rate", "0.05",
+                   "--lr-embeds", "0.05", "--lookahead", "2", "--print-freq", "5"]
+        for extra, want in ((["--inference-only"], "Test accuracy"),
+                            (["--lookahead", "2", "--print-freq", "5"], "Step 10:"),
+                            (["--scan-steps", "4", "--no-pack-wire", "--dedup-lookups", "on",
+                              "--lookahead", "8", "--print-freq", "5"], "Step 10:"),
+                            (["--no-use-cache", "--print-freq", "5"], "Epoch 0: 5/"),
+                            (adagrad + ["--save-model", ck], "Step 10:"),
+                            (adagrad + ["--load-model", ck, "--inference-only"], "Test accuracy"),
+                            (adagrad + ["--load-model", ck, "--num-batches", "20"], "Step 20:")):
+            res = subprocess.run(common + extra, cwd=REPO, capture_output=True, text=True,
+                                 timeout=300)
+            if (res.returncode != 0 or want not in res.stdout
+                    or "Test accuracy" not in res.stdout):
+                raise RuntimeError(f"CLI failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            if "--save-model" in extra:
+                assert os.path.exists(os.path.join(ck, "embed_acc.npy")), "no checkpoint saved"
+            print("cli:", " | ".join(res.stdout.strip().splitlines()[-2:]))
+
+
+def uniform_stream(cfg, num_batches: int, seed: int):
+    """Uniform ids over every table's rows, single-index bags."""
+    from cdlrm_tpu.data.synthetic import SyntheticDataset
+
+    return SyntheticDataset(
+        m_den=13, ln_emb=cfg.ln_emb, data_size=BATCH * num_batches, mini_batch_size=BATCH,
+        num_indices_per_lookup=1, num_indices_per_lookup_fixed=True, round_targets=True,
+        seed=seed,
+    )
+
+
+def counted_train(tr, on_reset=None) -> dict:
+    """TRAIN_WARM_STEPS steps of set-up, then TRAIN_STEPS counted steps of
+    the main path, with every launch count reset just before them (and
+    ``on_reset`` called there); the eviction writeback flushed after. Returns
+    the counted steps' numbers, launch counts and the run's summary line."""
+    t0 = time.perf_counter()
+    m = tr.train(max_steps=TRAIN_WARM_STEPS)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    counters = ("loss_sum", "correct", "examples", "hits", "lookups", "refills",
+                "caching_overhead_s")
+    before = [getattr(m, c) for c in counters]
+    reset_launches()
+    if on_reset is not None:
+        on_reset()
+    t0 = time.perf_counter()
+    tr.train(max_steps=TRAIN_WARM_STEPS + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    out = dict(zip(counters, (getattr(m, c) - was for c, was in zip(counters, before))))
+    t0 = time.perf_counter()
+    assert tr.eviction_manager.flush(timeout=120), "eviction writeback stalled"
+    drain = time.perf_counter() - t0
+    assert tr.global_step == TRAIN_WARM_STEPS + TRAIN_STEPS
+    written = tr.eviction_manager.rows_written
+    loss = out["loss_sum"] / out["examples"]
+    line = (f"{TRAIN_STEPS} steps of {BATCH} in {wall:.3f} s host wall, "
+            f"{TRAIN_STEPS * BATCH / wall:.1f} examples/s ({1000 * wall / TRAIN_STEPS:.2f} "
+            f"ms/step incl. {out['refills']} refills that held the train thread "
+            f"{out['caching_overhead_s']:.3f} s in all; set-up {warm:.2f} s for "
+            f"{TRAIN_WARM_STEPS} steps); loss {loss:.6f}, acc "
+            f"{out['correct'] / out['examples']:.6f}, train hit rate "
+            f"{out['hits'] / out['lookups']:.6f}, dedup wire {tr._dedup}, eviction rows "
+            f"written {written} (the backlog drained {drain:.3f} s after the counted steps), "
+            f"kernel launches {launches}")
+    assert np.isfinite(loss), loss
+    assert out["refills"] > 0, "no refill in the counted steps"
+    out.update(wall=wall, launches=launches, written=written, line=line)
+    return out
 
 
 def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
@@ -364,49 +491,18 @@ def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
     every launch count reset just before them. Then one train step on the
     card against the same inputs through the port on the CPU. Returns the
     run's numbers and launch counts."""
-    from cdlrm_tpu.data.synthetic import SyntheticDataset
     from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
     cfg = headline_config(lookahead=LOOKAHEAD, print_freq=1 << 30,
                           dedup_lookups=dedup_lookups)
-    train_ds = SyntheticDataset(
-        m_den=13, ln_emb=cfg.ln_emb, data_size=BATCH * (TRAIN_WARM_STEPS + TRAIN_STEPS + 2),
-        mini_batch_size=BATCH, num_indices_per_lookup=1,
-        num_indices_per_lookup_fixed=True, round_targets=True, seed=SEED + 2,
-    )
+    train_ds = uniform_stream(cfg, TRAIN_WARM_STEPS + TRAIN_STEPS + 2, SEED + 2)
     tr = CachedDlrmTrainer(cfg, train_ds, device=dev)
     try:
-        t0 = time.perf_counter()
-        m = tr.train(max_steps=TRAIN_WARM_STEPS)
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        counters = ("loss_sum", "correct", "examples", "hits", "lookups", "refills",
-                    "caching_overhead_s")
-        before = [getattr(m, c) for c in counters]
-        reset_launches()
-        t0 = time.perf_counter()
-        tr.train(max_steps=TRAIN_WARM_STEPS + TRAIN_STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-        loss_sum, correct, examples, hits, lookups, refills, refill_s = (
-            getattr(m, c) - was for c, was in zip(counters, before)
-        )
-        assert tr.eviction_manager.flush(timeout=120), "eviction writeback stalled"
-        written, wire = tr.eviction_manager.rows_written, tr._dedup
-        assert tr.global_step == TRAIN_WARM_STEPS + TRAIN_STEPS
+        run = counted_train(tr)
     finally:
         tr.close()
-    loss, hit = loss_sum / examples, hits / lookups
-    print(f"[{card}] train dedup_lookups={dedup_lookups}: {TRAIN_STEPS} steps of {BATCH} in "
-          f"{wall:.3f} s host wall, {TRAIN_STEPS * BATCH / wall:.1f} examples/s "
-          f"({1000 * wall / TRAIN_STEPS:.2f} ms/step incl. {refills} refills that held the "
-          f"train thread {refill_s:.3f} s in all; set-up "
-          f"{warm:.2f} s for {TRAIN_WARM_STEPS} steps); loss {loss:.6f}, acc "
-          f"{correct / examples:.6f}, train hit rate {hit:.6f}, dedup wire {wire}, "
-          f"eviction rows written {written}, kernel launches {launches}")
-    assert np.isfinite(loss), loss
-    assert refills > 0, "no refill in the counted steps"
+    launches = run["launches"]
+    print(f"[{card}] train dedup_lookups={dedup_lookups}: {run['line']}")
 
     # the step alone, on the last trained batch (resident ids; the pipeline
     # threads are stopped): the card against the CPU from the same cache and
@@ -670,6 +766,232 @@ def fulltable(card: str, dev: torch.device) -> dict:
     return dict(launches=launches)
 
 
+def _state_leaves(tree) -> list:
+    return [a for key in ("bot", "top") for pair in tree[key] for a in pair]
+
+
+def _equal_leaves(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(_state_leaves(a), _state_leaves(b)))
+
+
+def _equal_rows(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 20) -> bool:
+    """Bit-equality of two row tensors, a chunk of rows at a time."""
+    return a.shape == b.shape and all(
+        torch.equal(a[i: i + chunk].to(b.device), b[i: i + chunk])
+        for i in range(0, b.shape[0], chunk))
+
+
+def checkpoint_round_trip(card: str, tr, cfg, ds, dev: torch.device) -> dict:
+    """Save ``tr`` (run (e)) with checkpoint_async into a temporary
+    directory, timing how long the train thread is held and how long the
+    writer takes; load it into a fresh trainer and hold the cache,
+    ``embed_acc``, parameters, ``dense_acc``, the store's accumulators and
+    the occupancy bit-equal; then train the loaded trainer on."""
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    assert cfg.checkpoint_async
+    master_s = add_timer(tr.master, "save")
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        tr.save_checkpoint(ck)
+        held = time.perf_counter() - t0
+        writing = tr._ckpt_writer.thread is not None
+        tr._ckpt_writer.join()
+        write_s = tr._ckpt_writer.write_s
+        size = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        master_gb = os.path.getsize(os.path.join(ck, "master.npz")) / 1e9
+        ld = CachedDlrmTrainer(cfg, ds, device=dev)
+        try:
+            t0 = time.perf_counter()
+            ld.load_checkpoint(ck)
+            load_s = time.perf_counter() - t0
+            equal = {
+                "cache": _equal_rows(ld.cache, tr.cache),
+                "embed_acc": torch.equal(ld.embed_acc, tr.embed_acc),
+                "params": _equal_leaves(ld.params, tr.params),
+                "dense_acc": _equal_leaves(ld.dense_acc, tr.dense_acc),
+                "store": all(np.array_equal(a, b) for a, b in
+                             zip(ld._acc_master.accs, tr._acc_master.accs)),
+                "occupancy": all(np.array_equal(a, b) for a, b in
+                                 zip(ld.controller.occupancy, tr.controller.occupancy)),
+                "step": ld.global_step == tr.global_step,
+            }
+            assert all(equal.values()), equal
+            step0 = ld.global_step
+            ld.train(max_steps=step0 + AG_RESUME_STEPS, log_fn=lambda *_: None)
+            torch.cuda.synchronize()
+            assert ld.global_step == step0 + AG_RESUME_STEPS
+            assert bool(torch.isfinite(ld.cache).all()), "non-finite cache after resuming"
+        finally:
+            ld.close()
+    print(f"[{card}] checkpoint of (e), checkpoint_async: train thread held {held:.3f} s "
+          f"(flush, D2H of cache and state, the store and occupancy copies, and the virtual "
+          f"masters' save, which has no snapshot form: {master_s[0]:.3f} s for "
+          f"{master_gb:.3f} GB), writer {write_s:.3f} s "
+          f"{'on its thread' if writing else 'in place'}, {size / 1e9:.3f} GB on disk; "
+          f"load {load_s:.3f} s; cache, embed_acc, params, dense_acc, store and occupancy "
+          f"bit-equal; the loaded trainer trained {AG_RESUME_STEPS} more steps")
+    return dict(held_s=held, write_s=write_s)
+
+
+def adagrad_run(card: str, dev: torch.device, master: bool) -> dict:
+    """Phase 7, run (e) with ``adagrad_master_state`` or (f) without: cached
+    AdaGrad on the packed dedup wire at full width, uniform ids, lookahead
+    2, the cache cut to AG_CACHE_SETS sets. Counted like train_run, with the
+    train thread's time in the eviction fence beside it; (e) then saves and
+    loads a checkpoint (checkpoint_round_trip). Then one AdaGrad step on the
+    card against the port on the CPU, and the main path's (bf16) step's device
+    time beside the SGD step's on the same inputs.
+
+    The step held against the CPU computes in float32 (see the note at AG_LR)."""
+    from cdlrm_tpu_torch.train import step as step_lib
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    run = "e" if master else "f"
+    cfg = headline_config(
+        lookahead=LOOKAHEAD, print_freq=1 << 30, dedup_lookups="on", cache_size=AG_CACHE_SETS,
+        optimizer="adagrad", adagrad_master_state=master, learning_rate=AG_LR,
+        lr_embeds=AG_LR, checkpoint_async=True,
+    )
+    total = TRAIN_WARM_STEPS + TRAIN_STEPS
+    ds = uniform_stream(cfg, total + AG_RESUME_STEPS + 2 * LOOKAHEAD, SEED + 7)
+    tr = CachedDlrmTrainer(cfg, ds, device=dev)
+    # the boundary's eviction fence and store gather (a no-op in (f)); the
+    # flush after the counted steps is not in it
+    fence = add_timer(tr, "_complete_staged_acc")
+    ckpt = {}
+    try:
+        out = counted_train(tr, on_reset=lambda: fence.__setitem__(0, 0.0))
+        support = (sum(int(np.count_nonzero(a)) for a in tr._acc_master.accs)
+                   if master else 0)
+        print(f"[{card}] train ({run}) AdaGrad, adagrad_master_state={master}, cache "
+              f"{AG_CACHE_SETS} sets x {WAYS} ways: {out['line']}; train thread in the "
+              f"eviction fence and store gather {fence[0]:.3f} s; accumulator store support "
+              f"{support} rows")
+        launches = out["launches"]
+        assert out["written"] > 0, "no eviction was written back"
+        assert support > 0 or not master, "the accumulator store is empty"
+        assert launches["scatter_add_rows"] == TRAIN_STEPS, launches
+        assert launches["index_add_rows"] == TRAIN_STEPS, launches
+        assert launches["gather_rows"] > 0 and launches["scatter_set_rows"] > 0, launches
+        if master:
+            ckpt = checkpoint_round_trip(card, tr, cfg, ds, dev)
+    finally:
+        tr.close()
+
+    batch = list(itertools.islice(ds.batches(), total))[-1]
+    inputs, _, dedup, _ = tr._assemble(batch, BATCH)
+    assert dedup
+    step = tr._get_step(1, True)
+    step32 = step_lib.make_cached_train_step(
+        tr.geo, tr.step_cfg._replace(dedup=True, compute_dtype="float32"), tr.pooled_width)
+    state = (tr.dense_acc, tr.embed_acc)
+    state_cpu = (_cpu_copy(tr.dense_acc), tr.embed_acc.to("cpu", copy=True))
+    params_cpu, cache_cpu = _cpu_copy(tr.params), tr.cache.to("cpu", copy=True)
+    # the wire's bf16 dense features, exactly widened
+    inputs32 = (inputs[0].float(), *inputs[1:])
+    p_dev, c_dev, da_dev, ea_dev, l_dev, _ = step32(tr.params, tr.cache, *inputs32, *state,
+                                                    tr._lr, tr._lr_emb)
+    p_cpu, c_cpu, da_cpu, ea_cpu, l_cpu, _ = step32(params_cpu, cache_cpu,
+                                                    *[x.cpu() for x in inputs32], *state_cpu,
+                                                    tr._lr, tr._lr_emb)
+    assert bool(torch.isfinite(c_dev).all()) and bool(torch.isfinite(ea_dev).all())
+    errs = dict(cache=_max_row_err(c_dev, c_cpu), embed_acc=_max_row_err(ea_dev[:, None],
+                                                                          ea_cpu[:, None]),
+                params=_max_param_err(p_dev, p_cpu), dense_acc=_max_param_err(da_dev, da_cpu),
+                loss=abs(float(l_dev) - float(l_cpu)) / BATCH)
+    del c_cpu, cache_cpu
+    assert max(errs.values()) <= SCORE_TOL, errs
+    sgd_step = step_lib.make_cached_train_step(
+        tr.geo, tr.step_cfg._replace(dedup=True, optimizer="sgd"), tr.pooled_width)
+    ag_ms, sgd_ms = time_pair(
+        "AdaGrad step", card,
+        lambda: step(tr.params, tr.cache, *inputs, *state, tr._lr, tr._lr_emb),
+        lambda: sgd_step(tr.params, tr.cache, *inputs, tr._lr, tr._lr_emb), what="AdaGrad/SGD")
+    print(f"  one AdaGrad step in float32 vs the CPU run: max |difference| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {SCORE_TOL}); device step {ag_ms:.3f} ms by events, the SGD "
+          f"dedup step on the same inputs {sgd_ms:.3f} ms")
+    return dict(launches=launches, examples_s=TRAIN_STEPS * BATCH / out["wall"], **ckpt)
+
+
+def adagrad(card: str, dev: torch.device) -> dict:
+    """Phase 7: cached AdaGrad at full width, (e) with the master state
+    (and the checkpoint round trip), (f) without."""
+    runs = {"e": adagrad_run(card, dev, True), "f": adagrad_run(card, dev, False)}
+    print(f"[{card}] AdaGrad examples/s: (e) master state {runs['e']['examples_s']:.1f}, "
+          f"(f) without {runs['f']['examples_s']:.1f}")
+    return runs
+
+
+def fulltable_adagrad(card: str, dev: torch.device) -> dict:
+    """Phase 8: full-table AdaGrad at full width: FT_AG_STEPS steps on the
+    loguniform stream with every launch count reset just before; one step
+    on the card against the port on the CPU in float32 (see the note at AG_LR),
+    accumulators included; then a save into a temporary directory and a load
+    into a fresh trainer, bit-equal."""
+    from cdlrm_tpu_torch.train import step as step_lib
+    from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
+
+    cfg = headline_config(use_cache=False, print_freq=1 << 30, optimizer="adagrad",
+                          learning_rate=AG_LR, lr_embeds=AG_LR)
+    ds = LogUniformStream(FT_AG_STEPS + 1, seed=SEED + 8)
+    tr = FullTableDlrmTrainer(cfg, ds, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.train(max_steps=FT_AG_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"[{card}] full-table AdaGrad train: {FT_AG_STEPS} steps of {BATCH} in {wall:.3f} s "
+          f"host wall, {FT_AG_STEPS * BATCH / wall:.1f} examples/s (first step included); "
+          f"kernel launches {launches}")
+    assert tr.global_step == FT_AG_STEPS
+    assert launches == {"gather_rows": 2 * FT_AG_STEPS, "scatter_set_rows": 0,
+                        "scatter_add_rows": FT_AG_STEPS, "index_add_rows": FT_AG_STEPS}, launches
+
+    batch = list(itertools.islice(ds.batches(), FT_AG_STEPS + 1))[-1]
+    x, ls_i, mask, tgt = tr._put(batch)
+    cpu = (_cpu_copy(tr.params), tr.tables.to("cpu", copy=True), tr._offsets.cpu(), x.cpu(),
+           ls_i.cpu(), mask.cpu(), tgt.cpu(), _cpu_copy(tr.dense_acc),
+           tr.emb_acc.to("cpu", copy=True))
+    step32 = step_lib.make_fulltable_train_step(
+        tr.step_cfg._replace(compute_dtype="float32"), pooled=tr._pooled)
+    p_dev, t_dev, da_dev, ea_dev, l_dev, _ = step32(
+        tr.params, tr.tables, tr._offsets, x, ls_i, mask, tgt, tr.dense_acc, tr.emb_acc,
+        tr._lr, tr._lr_emb)
+    p_cpu, t_cpu, da_cpu, ea_cpu, l_cpu, _ = step32(*cpu, tr._lr, tr._lr_emb)
+    assert bool(torch.isfinite(l_dev)), "non-finite loss"
+    errs = dict(tables=_max_row_err(t_dev, t_cpu),
+                emb_acc=_max_row_err(ea_dev[:, None], ea_cpu[:, None]),
+                params=_max_param_err(p_dev, p_cpu), dense_acc=_max_param_err(da_dev, da_cpu),
+                loss=abs(float(l_dev) - float(l_cpu)) / BATCH)
+    del cpu, t_cpu
+    assert max(errs.values()) <= SCORE_TOL, errs
+    tr.params, tr.dense_acc = p_dev, da_dev
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        tr.save_checkpoint(ck)
+        save_s = time.perf_counter() - t0
+        ld = FullTableDlrmTrainer(cfg, ds, device=dev)
+        t0 = time.perf_counter()
+        ld.load_checkpoint(ck)
+        load_s = time.perf_counter() - t0
+    equal = {"tables": _equal_rows(ld.tables, tr.tables),
+             "emb_acc": torch.equal(ld.emb_acc, tr.emb_acc),
+             "params": _equal_leaves(ld.params, tr.params),
+             "dense_acc": _equal_leaves(ld.dense_acc, tr.dense_acc),
+             "step": ld.global_step == tr.global_step}
+    assert all(equal.values()), equal
+    print(f"  one full-table AdaGrad step in float32 vs the CPU run: max |difference| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {SCORE_TOL}); checkpoint save {save_s:.3f} s, load {load_s:.3f} s, "
+          f"tables, accumulators and parameters bit-equal")
+    del tr, ld, t_dev
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -698,15 +1020,18 @@ def main() -> int:
     runs = train(card, dev)
     torch.cuda.empty_cache()
     full = fulltable(card, dev)
+    runs.update(adagrad(card, dev))
+    torch.cuda.empty_cache()
+    full_ag = fulltable_adagrad(card, dev)
     assert "jax" not in sys.modules, "the port imported jax"
 
     sources = {"gather_rows": "cdlrm_tpu/ops/lookup.py:70",
                "scatter_set_rows": "cdlrm_tpu/ops/scatter.py:257",
                "scatter_add_rows": "cdlrm_tpu/ops/scatter.py:211",
                "index_add_rows": "cdlrm_tpu/ops/lookup.py:99"}
-    # launches: the sum over the main-path runs (serving, training a to d,
-    # full-table training), each counted from 0
-    launches = {name: served[name] + full["launches"][name]
+    # launches: the sum over the main-path runs (serving, training a to f,
+    # full-table training with SGD and AdaGrad), each counted from 0
+    launches = {name: served[name] + full["launches"][name] + full_ag["launches"][name]
                 + sum(run["launches"][name] for run in runs.values())
                 for name in KERNELS}
     print(json.dumps({"kernels": [

@@ -180,9 +180,6 @@ def test_cached_equals_fulltable_when_fully_resident(kw):
     (dict(world_size=2), "world_size"),
     (dict(qr_flag=True), "qr_flag"),
     (dict(md_flag=True), "md_flag"),
-    (dict(optimizer="adagrad"), "AdaGrad"),
-    (dict(save_model="/nonexistent/ck"), "save_model"),
-    (dict(checkpoint_freq=10), "checkpoint_freq"),
     (dict(enable_profiling=True), "enable_profiling"),
 ])
 def test_fulltable_refuses_unported_fields(kw, name):

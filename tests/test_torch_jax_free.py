@@ -8,6 +8,7 @@ paths in a fresh interpreter where importing jax fails."""
 
 import dataclasses
 import os
+import pickle
 import subprocess
 import sys
 
@@ -149,6 +150,30 @@ def test_cli_trains_scan_blocks_without_jax():
     assert res.returncode == 0, res.stderr
     assert "Step 8:" in res.stdout and "Test accuracy" in res.stdout
     assert "(4, True, True)" in res.stdout  # a coalesced block of 4 ran
+
+
+def test_cli_adagrad_checkpoint_without_jax(tmp_path):
+    """AdaGrad with the master state on the packed dedup wire, saved with
+    --save-model; then the checkpoint loads (--load-model), training resumes
+    from its step and the resumed run saves again."""
+    ck = str(tmp_path / "ck")
+    adagrad = ("--optimizer", "adagrad", "--dedup-lookups", "on", "--adagrad-master-state",
+               "--learning-rate", "0.05", "--lr-embeds", "0.05", "--lookahead", "2",
+               "--print-freq", "4", "--save-model", ck)
+    res = _run(_CLI, *_SMALL, *adagrad)
+    assert res.returncode == 0, res.stderr
+    assert "Step 8:" in res.stdout and "Test accuracy" in res.stdout
+    for name in ("meta.pkl", "embed_acc.npy", "dense_acc.npz", "acc_store.npz", "master.npz"):
+        assert os.path.exists(os.path.join(ck, name)), name
+    # 8 more batches from the saved cursor: steps 9-16
+    longer = list(_SMALL)
+    longer[longer.index("--num-batches") + 1] = "16"
+    res = _run(_CLI, *longer, *adagrad, "--load-model", ck)
+    assert res.returncode == 0, res.stderr
+    assert "Step 16:" in res.stdout and "Step 8:" not in res.stdout
+    assert "Test accuracy" in res.stdout
+    with open(os.path.join(ck, "meta.pkl"), "rb") as f:
+        assert pickle.load(f)["global_step"] == 16
 
 
 def test_cli_trains_fulltable_without_jax():

@@ -165,7 +165,6 @@ def test_refill_step_matches_jax(jax_pallas):
 
 def test_refill_step_refuses_unported_modes():
     for cfg in (tstep.StepConfig(refill_broadcast="strict"),
-                tstep.StepConfig(refill_broadcast="delta"),
-                tstep.StepConfig(optimizer="adagrad")):
+                tstep.StepConfig(refill_broadcast="delta")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tstep.make_refill_step(cfg, trash_row=0)

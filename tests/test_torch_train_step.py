@@ -128,8 +128,17 @@ def test_decode_dedup_matches_jax(bits, inv_bits):
 
 
 def test_train_step_refuses_adagrad():
+    """AdaGrad needs the dedup wire and refuses the block-coalesced update,
+    as cdlrm_tpu's step does (step.py:562-582)."""
     from cdlrm_tpu.cache.geometry import CacheGeometry
 
     geo = CacheGeometry.build([100], 8, 16, 4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires the dedup wire"):
         tstep.make_cached_train_step(geo, tstep.StepConfig(optimizer="adagrad"))
+    with pytest.raises(ValueError, match="block_coalesce requires optimizer='sgd'"):
+        tstep.make_cached_train_step(
+            geo, tstep.StepConfig(optimizer="adagrad", dedup=True, block_coalesce=True),
+            block=2,
+        )
+    with pytest.raises(ValueError, match="sgd|adagrad"):
+        tstep.make_cached_train_step(geo, tstep.StepConfig(optimizer="rmsprop", dedup=True))

@@ -137,10 +137,6 @@ def test_unported_flags_are_refused():
     (dict(qr_flag=True), "qr_flag"),
     (dict(hot_tier_rows=64), "hot_tier_rows"),
     (dict(sorted_dedup_wire=True, pack_wire=False, dedup_lookups="on"), "sorted_dedup_wire"),
-    (dict(save_model="/nonexistent/ck"), "save_model"),
-    (dict(checkpoint_freq=10), "checkpoint_freq"),
-    (dict(optimizer="adagrad", dedup_lookups="on", learning_rate=0.01, lr_embeds=0.01),
-     "AdaGrad"),
     (dict(world_size=2), "world_size"),
     (dict(enable_profiling=True), "enable_profiling"),
     (dict(md_flag=True), "md_flag"),
@@ -148,8 +144,9 @@ def test_unported_flags_are_refused():
 def test_unimplemented_training_fields_are_refused(kw, name):
     """Fields that train() would otherwise ignore are refused at
     construction; serving with all of them at their defaults is pinned by
-    the tests above. Scan blocks, the unpacked dedup wire and use_cache=False
-    (routed to the full-table trainer by the CLI) are ported."""
+    the tests above. Scan blocks, the unpacked dedup wire, use_cache=False
+    (routed to the full-table trainer by the CLI), AdaGrad and checkpoint
+    saves are ported."""
     ds = _ds(5, 1)
     with pytest.raises(ValueError, match="does not implement .*" + name):
         CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
