@@ -12,7 +12,8 @@ Example (tiny, CPU-runnable):
     --num-batches 20 --cache-size 128 --num-ways 4 --loss-function bce \
     --lookahead 4 --print-freq 10
 
-Every flag but ``--device`` is cdlrm_tpu's (cdlrm_tpu.config); the trainer
+Every flag but ``--device`` is also cdlrm_tpu's (cdlrm_tpu_torch.config
+keeps the same fields); the trainer
 refuses the ones the port does not implement yet (ROADMAP.md queue 1).
 """
 
@@ -24,8 +25,52 @@ import sys
 import numpy as np
 import torch
 
-from cdlrm_tpu.config import config_from_args
-from cdlrm_tpu_torch.config import build_dataset
+from cdlrm_tpu_torch.config import Config, config_from_args
+
+
+def build_dataset(cfg: Config):
+    """Returns (train_ds, test_ds, cfg) with cfg.finalize() applied."""
+    if cfg.data_generation in ("random", "synthetic"):
+        cfg.finalize()
+        from cdlrm_tpu_torch.data.synthetic import SyntheticDataset
+
+        train = SyntheticDataset(
+            m_den=cfg.ln_bot[0],
+            ln_emb=cfg.ln_emb,
+            data_size=cfg.data_size,
+            mini_batch_size=cfg.mini_batch_size,
+            num_batches=cfg.num_batches,
+            num_indices_per_lookup=cfg.num_indices_per_lookup,
+            num_indices_per_lookup_fixed=cfg.num_indices_per_lookup_fixed,
+            round_targets=cfg.round_targets,
+            data_generation=cfg.data_generation,
+            trace_file=cfg.data_trace_file,
+            enable_padding=cfg.data_trace_enable_padding,
+            trace_model=cfg.data_trace_model,
+            seed=cfg.numpy_rand_seed,
+        )
+        test = SyntheticDataset(
+            m_den=cfg.ln_bot[0],
+            ln_emb=cfg.ln_emb,
+            data_size=max(cfg.test_mini_batch_size * 4, cfg.mini_batch_size),
+            mini_batch_size=cfg.test_mini_batch_size,
+            # eval batches must share the train stream's pooled width: the
+            # trainer builds one eval step for [T, B, P] + mask
+            num_indices_per_lookup=cfg.num_indices_per_lookup,
+            num_indices_per_lookup_fixed=cfg.num_indices_per_lookup_fixed,
+            round_targets=cfg.round_targets,
+            data_generation=cfg.data_generation,
+            trace_file=cfg.data_trace_file,
+            enable_padding=cfg.data_trace_enable_padding,
+            trace_model=cfg.data_trace_model,
+            seed=cfg.numpy_rand_seed + 1,
+        )
+        return train, test, cfg
+    if cfg.data_generation == "dataset":
+        from cdlrm_tpu_torch.data.criteo import make_criteo_datasets
+
+        return make_criteo_datasets(cfg)
+    raise ValueError(f"unsupported --data-generation {cfg.data_generation}")
 
 
 def main(argv=None) -> int:

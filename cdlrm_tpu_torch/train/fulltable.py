@@ -29,9 +29,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from cdlrm_tpu.config import Config
-from cdlrm_tpu.data.synthetic import Batch
-from cdlrm_tpu.utils.metrics import StreamingAUC, accuracy_count
+from cdlrm_tpu_torch.config import Config
+from cdlrm_tpu_torch.data.synthetic import Batch
+from cdlrm_tpu_torch.utils.metrics import StreamingAUC, accuracy_count
 from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax, params_to_jax
 from cdlrm_tpu_torch.models.embedding import init_embedding_tables
 from cdlrm_tpu_torch.train import step as step_lib

@@ -25,7 +25,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from cdlrm_tpu.cache.geometry import CacheGeometry
+from cdlrm_tpu_torch.cache.geometry import CacheGeometry
 from cdlrm_tpu_torch.models.dlrm import compute_loss, dlrm_forward
 from cdlrm_tpu_torch.models.embedding import embedding_forward, global_rows
 from cdlrm_tpu_torch.models.embedding import pool as _pool

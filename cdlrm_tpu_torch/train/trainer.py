@@ -1,10 +1,12 @@
 """Cached DLRM training and serving on one device, the counterpart of
 cdlrm_tpu/train/trainer.py::CachedDlrmTrainer at ``world_size=1``.
 
-The host side is cdlrm_tpu's, shared: masters, the cache controller
+The host side is this package's copy of cdlrm_tpu's (cache/, data/,
+ops/native.py, train/pipeline.py, utils/): masters, the cache controller
 (occupancy, probe, insert plan), the lookahead prefetcher and its shadow
 planner, the eviction writeback thread, the assembly pipeline, the synthetic
-and Criteo streams, metrics. The device side is this package's: the cache
+and Criteo streams, metrics; tests/test_torch_host.py holds it equal to
+cdlrm_tpu's. The device side: the cache
 ``[R, D]`` as one float32 tensor on ``device``, dense parameters as tensors,
 and the train, eval and refill steps of train/step.py. The same config and
 seed give the same masters, weights, probes, wire bytes and window plans as
@@ -48,16 +50,15 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from cdlrm_tpu.cache.geometry import CacheGeometry
-from cdlrm_tpu.cache.host_cache import HostCacheController, InsertPlan, build_insert_plan
-from cdlrm_tpu.cache.master import AccumulatorStore, MasterTables, VirtualMasterTables
-from cdlrm_tpu.cache.prefetcher import EvictionManager, LookaheadPrefetcher, WindowData
-from cdlrm_tpu.config import Config
-from cdlrm_tpu.data.synthetic import Batch
-from cdlrm_tpu.ops import native
-from cdlrm_tpu.utils.metrics import StreamingAUC, accuracy_count
-from cdlrm_tpu.utils.padding import pad_to_bucket, pow2_bucket
-from cdlrm_tpu_torch.config import jax_free_host
+from cdlrm_tpu_torch.cache.geometry import CacheGeometry
+from cdlrm_tpu_torch.cache.host_cache import HostCacheController, InsertPlan, build_insert_plan
+from cdlrm_tpu_torch.cache.master import AccumulatorStore, MasterTables, VirtualMasterTables
+from cdlrm_tpu_torch.cache.prefetcher import EvictionManager, LookaheadPrefetcher, WindowData
+from cdlrm_tpu_torch.config import Config
+from cdlrm_tpu_torch.data.synthetic import Batch
+from cdlrm_tpu_torch.ops import native
+from cdlrm_tpu_torch.utils.metrics import StreamingAUC, accuracy_count
+from cdlrm_tpu_torch.utils.padding import pad_to_bucket, pow2_bucket
 from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax, params_to_jax
 from cdlrm_tpu_torch.train import step as step_lib
 
@@ -421,7 +422,7 @@ class CachedDlrmTrainer:
         # assembly pipeline start with the first train() call
         self.eviction_fifo: "queue.Queue" = queue.Queue(maxsize=cfg.eviction_fifo_size)
         if cfg.pin_cores:
-            from cdlrm_tpu.utils.affinity import pin_current_thread
+            from cdlrm_tpu_torch.utils.affinity import pin_current_thread
 
             pin_current_thread(cfg.main_start_core)
         self.eviction_manager = EvictionManager(
@@ -481,7 +482,7 @@ class CachedDlrmTrainer:
                 if ls_i.shape[1] == b:
                     yield ls_i
             return
-        from cdlrm_tpu.train.pipeline import _batches_from
+        from cdlrm_tpu_torch.train.pipeline import _batches_from
 
         for batch in _batches_from(self.dataset, skip, full_size=b, epoch=epoch):
             if batch.x.shape[0] != b:
@@ -667,8 +668,7 @@ class CachedDlrmTrainer:
 
     def _probe(self, batch: Batch, probe):
         """Run a host probe over one batch (pooled bags flattened, masked
-        positions invalid), with the shared host layer's lazy jax imports
-        pointed at this package."""
+        positions invalid)."""
         ls_i, mask = batch.ls_i, batch.ls_mask
         t_count = ls_i.shape[0]
         if mask is not None:
@@ -678,11 +678,10 @@ class CachedDlrmTrainer:
                 )
         elif self.pooled_width:
             raise ValueError("trainer built for pooled batches, got single-index")
-        with jax_free_host():
-            if mask is None:
-                return probe(ls_i, self.master)
-            return probe(ls_i.reshape(t_count, -1), self.master,
-                         valid=mask.reshape(t_count, -1))
+        if mask is None:
+            return probe(ls_i, self.master)
+        return probe(ls_i.reshape(t_count, -1), self.master,
+                     valid=mask.reshape(t_count, -1))
 
     def _stage_batch(self, batch: Batch, wire: tuple, aux: tuple, train: bool) -> tuple:
         """Copy one batch's step inputs to the device, in the step's argument
@@ -765,7 +764,7 @@ class CachedDlrmTrainer:
         repeated train() calls resume mid-stream with windows aligned."""
         if self._pipeline_started:
             return
-        from cdlrm_tpu.train.pipeline import AssemblyPipeline
+        from cdlrm_tpu_torch.train.pipeline import AssemblyPipeline
 
         cfg = self.cfg
         epoch0, j0 = self._cursor
@@ -840,7 +839,7 @@ class CachedDlrmTrainer:
         [ub] int32 per step, the sorted union trash-padded to a power-of-two
         bucket [Pb] int32, its length [1] int32).
 
-        The union is a bitmap over the cache's rows: the shared native
+        The union is a bitmap over the cache's rows: the native
         kernels (``mask_bits``, ``block_union``, ``block_ranks``,
         ``block_union_reset``, cdlrm_tpu/ops/native.py:544-640) where the
         host library is available, else the numpy form, which gives the same
@@ -914,7 +913,7 @@ class CachedDlrmTrainer:
         signals, and run the cadences on global_step. Each step's loss and
         accuracy stay on the device until the next print, then come back in
         one copy."""
-        from cdlrm_tpu.train.pipeline import WINDOW_BOUNDARY, WINDOW_REPLAY
+        from cdlrm_tpu_torch.train.pipeline import WINDOW_BOUNDARY, WINDOW_REPLAY
 
         cfg = self.cfg
         self._start_pipeline()

@@ -32,13 +32,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from cdlrm_tpu.cache.host_cache import InsertPlan
-from cdlrm_tpu.config import Config
+from cdlrm_tpu_torch.cache.host_cache import InsertPlan
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import SyntheticDataset
 from cdlrm_tpu.parallel.mesh import make_dp_mesh
 from cdlrm_tpu.train import step as jstep
 from cdlrm_tpu.train.trainer import CachedDlrmTrainer as JaxTrainer
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config, finalize
 from cdlrm_tpu_torch.models.dlrm import params_to_jax
 from cdlrm_tpu_torch.train import step as tstep
 from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
@@ -117,8 +117,8 @@ def _step_cfg(port: bool, **kw):
     )
     base.update(kw)
     ln = np.array([1000, 500, 2000])
-    cfg = Config(**base)
-    return finalize(cfg, ln_emb=ln) if port else cfg.finalize(ln_emb=ln)
+    cfg = (Config if port else JaxConfig)(**base)
+    return cfg.finalize(ln_emb=ln)
 
 
 @pytest.mark.parametrize("pooled", [0, 3])
@@ -236,8 +236,8 @@ def _traj_cfg(port: bool, **kw):
         learning_rate=0.05, lr_embeds=0.1,
     )
     base.update(kw)
-    cfg = Config(**base)
-    return finalize(cfg, ln_emb=LN_EMB) if port else cfg.finalize(ln_emb=LN_EMB)
+    cfg = (Config if port else JaxConfig)(**base)
+    return cfg.finalize(ln_emb=LN_EMB)
 
 
 def _cycle_cfg(port: bool, master: bool, **kw):
@@ -252,8 +252,8 @@ def _cycle_cfg(port: bool, master: bool, **kw):
         refill_prestage=False, round_targets=True,
     )
     base.update(kw)
-    cfg = Config(**base)
-    return finalize(cfg, ln_emb=CYC_LN) if port else cfg.finalize(ln_emb=CYC_LN)
+    cfg = (Config if port else JaxConfig)(**base)
+    return cfg.finalize(ln_emb=CYC_LN)
 
 
 def _run(tr, steps, sync_writeback=False):

@@ -19,12 +19,12 @@ import torch
 
 import jax
 
-from cdlrm_tpu.config import Config
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import SyntheticDataset
-from cdlrm_tpu.ops import native
+from cdlrm_tpu_torch.ops import native
 from cdlrm_tpu.train import step as jstep
 from cdlrm_tpu.train.trainer import CachedDlrmTrainer as JaxTrainer
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.train import step as tstep
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
@@ -55,13 +55,13 @@ def test_decode_dedup_raw_matches_jax():
 
 
 def _cfg(port: bool, **kw):
-    cfg = Config(
+    cfg = (Config if port else JaxConfig)(
         arch_sparse_feature_size=16, arch_mlp_bot="13-32-16", arch_mlp_top="16-8-1",
         mini_batch_size=64, world_size=1, cache_size=128, num_ways=4,
         loss_function="bce", round_targets=True, scan_steps=K, pack_wire=False,
         dedup_lookups="on", **kw,
     )
-    return finalize(cfg, ln_emb=LN_EMB) if port else cfg.finalize(ln_emb=LN_EMB)
+    return cfg.finalize(ln_emb=LN_EMB)
 
 
 def _ds(pooled):
@@ -166,7 +166,7 @@ def test_block_union_numpy_form_matches_native(monkeypatch):
 
 
 def test_block_coalesce_needs_a_block_and_the_unpacked_dedup_wire():
-    from cdlrm_tpu.cache.geometry import CacheGeometry
+    from cdlrm_tpu_torch.cache.geometry import CacheGeometry
 
     geo = CacheGeometry.build([100], 8, 16, 4, 8)
     cfg = tstep.StepConfig(dedup=True, block_coalesce=True)

@@ -24,12 +24,12 @@ import numpy as np
 import pytest
 import torch
 
-from cdlrm_tpu.config import Config
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import SyntheticDataset
 from cdlrm_tpu.train import step as jstep
 from cdlrm_tpu.train.fulltable import FullTableDlrmTrainer as JaxFullTable
 from cdlrm_tpu.train.trainer import CachedDlrmTrainer as JaxTrainer
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config, finalize
 from cdlrm_tpu_torch.models.dlrm import params_to_jax
 from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
@@ -312,14 +312,14 @@ def test_fulltable_checkpoint_freq(tmp_path):
 
 
 def _fulltable_cfg(port, opt, **kw):
-    cfg = Config(
+    cfg = (Config if port else JaxConfig)(
         arch_sparse_feature_size=16, arch_mlp_bot="13-32-16", arch_mlp_top="16-8-1",
         mini_batch_size=32, world_size=1, loss_function="bce", print_freq=1000,
         round_targets=True, use_cache=False, learning_rate=0.1, lr_embeds=0.2,
         optimizer=opt, **kw,
     )
     ln = np.array([300, 400, 500])
-    return finalize(cfg, ln_emb=ln) if port else cfg.finalize(ln_emb=ln)
+    return cfg.finalize(ln_emb=ln)
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adagrad"])
@@ -386,11 +386,11 @@ def test_sgd_training_refuses_adagrad_checkpoint(tmp_path):
     test_ds = _Learnable(ln, 2, 64, seed=9)
 
     def cfg(port, **kw):
-        c = Config(arch_sparse_feature_size=8, arch_mlp_bot="13-16-8", arch_mlp_top="8-1",
+        c = (Config if port else JaxConfig)(arch_sparse_feature_size=8, arch_mlp_bot="13-16-8", arch_mlp_top="8-1",
                    mini_batch_size=64, world_size=1, cache_size=64, num_ways=4, lookahead=4,
                    loss_function="bce", print_freq=1000, learning_rate=0.05, lr_embeds=0.05,
                    **kw)
-        return finalize(c, ln_emb=ln) if port else c.finalize(ln_emb=ln)
+        return c.finalize(ln_emb=ln)
 
     jtr = JaxTrainer(cfg(False, optimizer="adagrad", dedup_lookups="on"), ds, test_ds)
     try:

@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from cdlrm_tpu.config import Config
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import Batch, SyntheticDataset
 from cdlrm_tpu.train import step as jstep
 from cdlrm_tpu.train.fulltable import FullTableDlrmTrainer as JaxFullTable
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config, finalize
 from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
@@ -34,8 +34,8 @@ def _cfg(port: bool, pooled=1, ln_emb=LN_EMB, **kw):
         num_indices_per_lookup=pooled, num_indices_per_lookup_fixed=pooled == 1,
     )
     base.update(kw)
-    cfg = Config(**base)
-    return finalize(cfg, ln_emb=ln_emb) if port else cfg.finalize(ln_emb=ln_emb)
+    cfg = (Config if port else JaxConfig)(**base)
+    return cfg.finalize(ln_emb=ln_emb)
 
 
 def _ds(seed, batches, pooled=1, extra=0):

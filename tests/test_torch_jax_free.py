@@ -1,11 +1,13 @@
-"""cdlrm_tpu_torch never imports jax, and its config route matches cdlrm_tpu's.
+"""cdlrm_tpu_torch imports neither jax nor cdlrm_tpu, and its Config
+finalizes as cdlrm_tpu's does.
 
-``Config.finalize`` and the packed-wire and dedup probes import jax modules
-lazily in cdlrm_tpu (config.py:367-368, host_cache.py:383, :440); the port
-points those imports at its own jax-free modules
-(cdlrm_tpu_torch/config.py). The guard runs the whole serving and training
-paths in a fresh interpreter where importing jax fails."""
+The port keeps its own copy of the host layer (config, data, cache, native
+ops, pipeline, utils). The guard runs the whole serving and training paths
+and the CLI in a fresh interpreter where importing jax or cdlrm_tpu fails,
+and a static walk over the port's sources and chip_smoke.py finds no such
+import, by statement or by string."""
 
+import ast
 import dataclasses
 import os
 import pickle
@@ -15,22 +17,21 @@ import sys
 import numpy as np
 import pytest
 
-from cdlrm_tpu.config import Config
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu.config import Config as JaxConfig
+from cdlrm_tpu_torch.config import Config, finalize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# any import of jax (or of a jax module of cdlrm_tpu) raises ImportError
-_BLOCK_JAX = "import sys; sys.modules['jax'] = None\n"
+FORBIDDEN = ("jax", "jaxlib", "cdlrm_tpu")
+# any import of jax or of cdlrm_tpu (or of a module of either) raises ImportError
+_BLOCK_JAX = "import sys; sys.modules['jax'] = None; sys.modules['cdlrm_tpu'] = None\n"
 _JAX_LOADED = (
     "loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and "
-    "(m.split('.')[0] in ('jax', 'jaxlib') or m in ('cdlrm_tpu.models.dlrm', "
-    "'cdlrm_tpu.models.tricks', 'cdlrm_tpu.train.step')))\n"
+    "m.split('.')[0] in ('jax', 'jaxlib', 'cdlrm_tpu'))\n"
     "assert not loaded, loaded\n"
 )
 _SERVE = _BLOCK_JAX + """
 import numpy as np
-from cdlrm_tpu.config import Config
-from cdlrm_tpu_torch.config import build_dataset
+from cdlrm_tpu_torch.config import Config, build_dataset
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 for pooled in (1, 3):
     cfg = Config(arch_embedding_size="1000-500-2000", arch_sparse_feature_size=16,
@@ -47,8 +48,7 @@ for pooled in (1, 3):
 
 _TRAIN = _BLOCK_JAX + """
 import numpy as np
-from cdlrm_tpu.config import Config
-from cdlrm_tpu_torch.config import build_dataset
+from cdlrm_tpu_torch.config import Config, build_dataset
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 for pooled, dedup in ((1, "auto"), (1, "on"), (3, "on")):
     cfg = Config(arch_embedding_size="1000-500-2000", arch_sparse_feature_size=16,
@@ -192,7 +192,9 @@ def test_cli_refuses_training():
                   "--arch-sparse-feature-size", "2", "--hot-tier-rows", "64"])
 
 
-def _fields_equal(a: Config, b: Config):
+def _fields_equal(a: Config, b: JaxConfig):
+    assert [f.name for f in dataclasses.fields(Config)] == [
+        f.name for f in dataclasses.fields(JaxConfig)]
     for f in dataclasses.fields(Config):
         va, vb = getattr(a, f.name), getattr(b, f.name)
         if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
@@ -209,21 +211,68 @@ def test_finalize_matches_config_finalize(op, itself, md, max_ind_range):
     kw = dict(arch_sparse_feature_size=16, arch_mlp_bot="13-32-16", arch_mlp_top="16-1",
               arch_interaction_op=op, arch_interaction_itself=itself, md_flag=md,
               max_ind_range=max_ind_range, mini_batch_size=32)
-    want = Config(**kw).finalize(ln_emb=ln_emb, m_den=13)
+    want = JaxConfig(**kw).finalize(ln_emb=ln_emb, m_den=13)
     got = finalize(Config(**kw), ln_emb=ln_emb, m_den=13)
     _fields_equal(got, want)
-    want_d = Config(arch_embedding_size="40-50-60", **kw).finalize()
-    got_d = finalize(Config(arch_embedding_size="40-50-60", **kw))
+    want_d = JaxConfig(arch_embedding_size="40-50-60", **kw).finalize()
+    got_d = Config(arch_embedding_size="40-50-60", **kw).finalize()
     _fields_equal(got_d, want_d)
 
 
-def test_jax_free_host_restores_modules():
-    """The stand-ins are visible only inside the block; the real cdlrm_tpu
-    modules (loaded in this process) come back after it."""
-    import cdlrm_tpu.models.dlrm as real
-    from cdlrm_tpu_torch.config import jax_free_host
-    from cdlrm_tpu_torch.models import dlrm as port
+def _forbidden_imports(path):
+    """(line, name) of every import of a FORBIDDEN package in one source:
+    ``import x``, ``from x import``, and ``importlib.import_module("x")`` or
+    ``__import__("x")`` with the name given as a string."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            called = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if called in ("import_module", "__import__", "run_module") and node.args:
+                arg = node.args[0]
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    names = [arg.value]
+        found += [(node.lineno, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    return found
 
-    with jax_free_host():
-        assert sys.modules["cdlrm_tpu.models.dlrm"] is port
-    assert sys.modules["cdlrm_tpu.models.dlrm"] is real
+
+def _port_sources():
+    for root, _, files in os.walk(os.path.join(REPO, "cdlrm_tpu_torch")):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+
+
+def test_port_sources_import_neither_jax_nor_cdlrm_tpu():
+    sources = list(_port_sources())
+    assert len(sources) > 25, sources  # the walk found the package
+    bad = {os.path.relpath(p, REPO): hits for p in sources if (hits := _forbidden_imports(p))}
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_neither_jax_nor_cdlrm_tpu():
+    assert not _forbidden_imports(os.path.join(REPO, "chip_smoke.py"))
+
+
+def test_forbidden_import_walk_sees_every_form(tmp_path):
+    """The walk itself: statements at any depth and imports by string."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import os, jax.numpy as jnp\n"
+        "def f():\n"
+        "    from cdlrm_tpu.config import Config\n"
+        "    import importlib\n"
+        "    importlib.import_module('cdlrm_tpu.ops.native')\n"
+        "    __import__('jaxlib')\n"
+        "    from cdlrm_tpu_torch.config import Config\n"
+        "    from . import jax\n"
+    )
+    assert _forbidden_imports(str(src)) == [
+        (1, "jax.numpy"), (3, "cdlrm_tpu.config"), (5, "cdlrm_tpu.ops.native"), (6, "jaxlib")]

@@ -13,10 +13,10 @@ held and flushed at the end, as in test_torch_train_trainer.py."""
 import numpy as np
 import pytest
 
-from cdlrm_tpu.config import Config
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import Batch
 from cdlrm_tpu.train.trainer import CachedDlrmTrainer as JaxTrainer
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 from test_torch_train_trainer import LN_EMB, _SkewSwitch
 
@@ -32,8 +32,8 @@ def _cfg(port: bool, ln_emb=LN_EMB, **kw):
         eviction_fifo_size=64, scan_steps=4, pack_wire=False,
     )
     base.update(kw)
-    cfg = Config(**base)
-    return finalize(cfg, ln_emb=ln_emb) if port else cfg.finalize(ln_emb=ln_emb)
+    cfg = (Config if port else JaxConfig)(**base)
+    return cfg.finalize(ln_emb=ln_emb)
 
 
 def _run(trainer_cls, cfg, ds, steps, **kw):

@@ -17,11 +17,11 @@ import torch
 
 import jax
 
-from cdlrm_tpu.config import Config
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import SyntheticDataset
 from cdlrm_tpu.train import step as jstep
 from cdlrm_tpu.train.trainer import CachedDlrmTrainer as JaxTrainer
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.train import step as tstep
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
@@ -30,12 +30,12 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def _cfg(port: bool, **kw):
-    cfg = Config(
+    cfg = (Config if port else JaxConfig)(
         arch_sparse_feature_size=16, arch_mlp_bot="13-32-16", arch_mlp_top="16-8-1",
         mini_batch_size=64, world_size=1, cache_size=128, num_ways=4,
         loss_function="bce", round_targets=True, **kw,
     )
-    return finalize(cfg, ln_emb=LN_EMB) if port else cfg.finalize(ln_emb=LN_EMB)
+    return cfg.finalize(ln_emb=LN_EMB)
 
 
 def _window_uniques(batches):
@@ -130,7 +130,7 @@ def test_decode_dedup_matches_jax(bits, inv_bits):
 def test_train_step_refuses_adagrad():
     """AdaGrad needs the dedup wire and refuses the block-coalesced update,
     as cdlrm_tpu's step does (step.py:562-582)."""
-    from cdlrm_tpu.cache.geometry import CacheGeometry
+    from cdlrm_tpu_torch.cache.geometry import CacheGeometry
 
     geo = CacheGeometry.build([100], 8, 16, 4, 8)
     with pytest.raises(ValueError, match="requires the dedup wire"):

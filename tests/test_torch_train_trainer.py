@@ -15,10 +15,10 @@ import sys
 import numpy as np
 import pytest
 
-from cdlrm_tpu.config import Config
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import Batch, SyntheticDataset
 from cdlrm_tpu.train.trainer import CachedDlrmTrainer as JaxTrainer
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -68,8 +68,8 @@ def _cfg(port: bool, **kw):
         eviction_fifo_size=64,
     )
     base.update(kw)
-    cfg = Config(**base)
-    return finalize(cfg, ln_emb=LN_EMB) if port else cfg.finalize(ln_emb=LN_EMB)
+    cfg = (Config if port else JaxConfig)(**base)
+    return cfg.finalize(ln_emb=LN_EMB)
 
 
 def _train(trainer_cls, cfg, ds, steps, hold_writeback=True, **kw):

@@ -10,10 +10,10 @@ scores agree within 1e-5 in float32 (summation order only) and AUC within
 import numpy as np
 import pytest
 
-from cdlrm_tpu.config import Config
+from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu.data.synthetic import SyntheticDataset
 from cdlrm_tpu.train.trainer import CachedDlrmTrainer as JaxTrainer
-from cdlrm_tpu_torch.config import finalize
+from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
 LN_EMB = np.array([1000, 500, 2000])
@@ -26,8 +26,8 @@ def _cfg(port: bool, **kw):
         loss_function="bce", lookahead=4, print_freq=10, round_targets=True,
     )
     base.update(kw)
-    cfg = Config(**base)
-    return finalize(cfg, ln_emb=LN_EMB) if port else cfg.finalize(ln_emb=LN_EMB)
+    cfg = (Config if port else JaxConfig)(**base)
+    return cfg.finalize(ln_emb=LN_EMB)
 
 
 def _ds(seed, batches, pooled=0, extra=0):
