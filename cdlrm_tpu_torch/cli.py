@@ -95,11 +95,16 @@ def main(argv=None) -> int:
         from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
 
         trainer = FullTableDlrmTrainer(cfg, train_ds, test_ds, device=device)
+    from cdlrm_tpu_torch.utils.profiling import profile_trace
+
     try:
         if cfg.load_model:
             trainer.load_checkpoint(cfg.load_model)
-        if not cfg.inference_only:
-            trainer.train(max_steps=cfg.num_batches if cfg.num_batches > 0 else None)
+        # --enable-profiling: a torch.profiler trace of the training steps,
+        # written to --profile-dir (utils/profiling.py)
+        with profile_trace(cfg.profile_dir if cfg.enable_profiling else None, device):
+            if not cfg.inference_only:
+                trainer.train(max_steps=cfg.num_batches if cfg.num_batches > 0 else None)
         if test_ds is not None:
             trainer.evaluate()
         if cfg.save_model and not cfg.inference_only:

@@ -2,7 +2,8 @@
 MLP -> feature interaction -> top MLP, with the loss_threshold clamp.
 
 Parameters are a plain dict ``{"bot": [(W, b), ...], "top": [...]}`` of
-tensors, the same tree cdlrm_tpu keeps, so a cdlrm_tpu checkpoint's leaves
+tensors (with ``"md_proj"`` [T, D, D] beside them for cached mixed-dimension
+tables), the same tree cdlrm_tpu keeps, so a cdlrm_tpu checkpoint's leaves
 map onto it one to one (:func:`params_from_jax`). :func:`compute_loss` is
 cdlrm_tpu's formula, clip included.
 """
@@ -44,61 +45,98 @@ def init_dlrm(
     return {"bot": init_mlp(rng, ln_bot, device), "top": init_mlp(rng, ln_top, device)}
 
 
+def map_params(fn, params: dict) -> dict:
+    """Apply ``fn`` to every tensor of a parameter dict: the (W, b) pairs of
+    ``bot`` and ``top`` and, where present, the cached mixed-dimension
+    projections ``md_proj`` [T, D, D]. Returns a new dict."""
+    return {
+        k: fn(v) if k == "md_proj" else [(fn(w), fn(b)) for w, b in v]
+        for k, v in params.items()
+    }
+
+
+def param_leaves(params: dict) -> list:
+    """The leaves of a parameter dict in ``jax.tree_util.tree_flatten`` order
+    (sorted keys): every bottom (W, b), then the embedding leaves under
+    ``"emb"`` and the projections ``"md_proj"`` where present, then every top
+    (W, b). For the dense parameters alone, :func:`dense_from_leaves` is the
+    inverse."""
+    leaves = [a for pair in params["bot"] for a in pair] + list(params.get("emb", []))
+    if "md_proj" in params:
+        leaves.append(params["md_proj"])
+    return leaves + [a for pair in params["top"] for a in pair]
+
+
+def dense_from_leaves(leaves: Sequence, like: dict) -> dict:
+    """A parameter dict shaped like ``like`` from :func:`param_leaves`-ordered
+    leaves."""
+    it = iter(leaves)
+    out = {"bot": [(next(it), next(it)) for _ in like["bot"]]}
+    if "md_proj" in like:
+        out["md_proj"] = next(it)
+    out["top"] = [(next(it), next(it)) for _ in like["top"]]
+    return out
+
+
 def params_from_jax(
     src: Union[dict, Sequence[np.ndarray]],
     n_bot: Optional[int] = None,
     device: Optional[torch.device] = None,
     n_emb: int = 0,
+    md_proj: bool = False,
 ) -> DLRMParams:
     """cdlrm_tpu parameters -> this package's parameter dict.
 
     ``src`` is either the pytree ``{"bot": [(W, b), ...], "top": [...]}``
     of numpy-convertible arrays, with the full-table trainer's ``"emb"``
-    list of plain [n, D] tables beside them, or its leaves in the order
-    ``jax.tree_util.tree_flatten`` gives them — sorted keys, so every bottom
-    (W, b) pair, then every table, then every top pair. That is the order in
-    which cdlrm_tpu writes ``dense_params.npz`` and ``fulltable_params.npz``
-    (``leaf_0``, ``leaf_1``, ...); a leaf list needs ``n_bot``, the number of
-    bottom layers, and ``n_emb``, the number of tables (0 for the dense
-    parameters alone). The tables come back as a list under ``"emb"`` when
-    there are any."""
+    leaves or the cached mixed-dimension trainer's ``"md_proj"`` [T, D, D]
+    beside them, or its leaves in the order ``jax.tree_util.tree_flatten``
+    gives them: sorted keys, so every bottom (W, b) pair, then every
+    embedding leaf, then ``md_proj``, then every top pair. That is the order
+    in which cdlrm_tpu writes ``dense_params.npz`` and
+    ``fulltable_params.npz`` (``leaf_0``, ``leaf_1``, ...); a leaf list needs
+    ``n_bot``, the number of bottom layers, ``n_emb``, the number of
+    embedding leaves (0 for the dense parameters alone), and ``md_proj``,
+    whether the projections ride. The embedding leaves come back as a flat
+    list under ``"emb"`` when there are any (a plain table is one leaf, a
+    QR table two, an MD table one or two: models/embedding.py maps them to
+    and from the trainer's tables)."""
     if isinstance(src, dict):
-        n_bot = len(src["bot"])
-        emb = list(src.get("emb", []))
-        n_emb = len(emb)
-        leaves = [a for pair in src["bot"] for a in pair] + emb
-        leaves += [a for pair in src["top"] for a in pair]
+        n_bot, n_emb, md_proj = len(src["bot"]), len(src.get("emb", [])), "md_proj" in src
+        leaves = param_leaves(src)
     else:
         leaves = list(src)
         if n_bot is None:
             raise ValueError("a leaf list needs n_bot (bottom layer count)")
-    n_dense = len(leaves) - n_emb
+    n_dense = len(leaves) - n_emb - int(md_proj)
     if n_dense % 2 or n_dense // 2 <= n_bot:
         raise ValueError(
             f"{len(leaves)} leaves cannot hold {n_bot} bottom layers, {n_emb} "
-            "tables and a top MLP"
+            "embedding leaves and a top MLP"
         )
     tensors = [
         torch.from_numpy(np.array(a, dtype=np.float32)).to(device) for a in leaves
     ]
-    dense = tensors[: 2 * n_bot] + tensors[2 * n_bot + n_emb:]
+    mid = 2 * n_bot + n_emb + int(md_proj)
+    dense = tensors[: 2 * n_bot] + tensors[mid:]
     pairs = list(zip(dense[0::2], dense[1::2]))
     out = {"bot": pairs[:n_bot], "top": pairs[n_bot:]}
     if n_emb:
         out["emb"] = tensors[2 * n_bot: 2 * n_bot + n_emb]
+    if md_proj:
+        out["md_proj"] = tensors[mid - 1]
     return out
 
 
 def params_to_jax(params: dict) -> List[np.ndarray]:
     """The inverse of :func:`params_from_jax`: the leaves of ``{"bot",
-    ["emb",] "top"}`` as float32 numpy copies on the host, in
+    ["emb",] ["md_proj",] "top"}`` as float32 numpy copies on the host, in
     ``jax.tree_util.tree_flatten`` order (every bottom (W, b), then every
-    table, then every top (W, b)): the ``leaf_i`` layout of cdlrm_tpu's
-    ``dense_params.npz``, ``dense_acc.npz`` and ``fulltable_*.npz``. The
-    copies are taken now, so a later in-place update does not reach them."""
-    leaves = [a for pair in params["bot"] for a in pair] + list(params.get("emb", []))
-    leaves += [a for pair in params["top"] for a in pair]
-    return [t.detach().to("cpu", copy=True).numpy() for t in leaves]
+    embedding leaf, then the projections, then every top (W, b)): the
+    ``leaf_i`` layout of cdlrm_tpu's ``dense_params.npz``, ``dense_acc.npz``
+    and ``fulltable_*.npz``. The copies are taken now, so a later in-place
+    update does not reach them."""
+    return [t.detach().to("cpu", copy=True).numpy() for t in param_leaves(params)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,11 @@ masters: the small-config path, and the oracle that pins the cached
 machinery (a fully resident cached run must train the same trajectory). The
 tables are one flat ``[sum(n), D]`` tensor (models/embedding.py); the
 parameters, drawn from one generator in cdlrm_tpu's order (the dense MLPs,
-then the tables), are equal to cdlrm_tpu's for the same seed.
+then the tables), are equal to cdlrm_tpu's for the same seed. It is also the
+only path for the QR and mixed-dimension compression tricks (``--qr-flag``,
+``--md-flag``, SGD only): the tables above the flag's threshold are held
+apart as ``QRParams`` / ``MDParams`` entries (models/tricks.py) and the flat
+tensor holds the plain ones.
 
 Ported: construction, ``train`` (SGD, or AdaGrad with a row-wise
 accumulator per table row), ``evaluate``, ``save_checkpoint`` and
@@ -16,7 +20,7 @@ accumulator per table row), ``evaluate``, ``save_checkpoint`` and
 full-table trainer ignores them, ``checkpoint_freq`` saves every so many
 steps and ``checkpoint_async`` writes on a background thread, as in the
 cached trainer. Refused at construction (``_check_fulltable``): multi-device
-and multi-host runs, QR and MD tables and profiling (ROADMAP.md queue 1).
+and multi-host runs (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -32,10 +36,12 @@ import torch
 from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.data.synthetic import Batch
 from cdlrm_tpu_torch.utils.metrics import StreamingAUC, accuracy_count
-from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax, params_to_jax
-from cdlrm_tpu_torch.models.embedding import init_embedding_tables
+from cdlrm_tpu_torch.models.dlrm import init_dlrm, map_params, params_from_jax, params_to_jax
+from cdlrm_tpu_torch.models.embedding import emb_leaves, init_embedding_tables
 from cdlrm_tpu_torch.train import step as step_lib
-from cdlrm_tpu_torch.train.trainer import CheckpointWriter, _pad_batch, _write_npz, _write_pickle
+from cdlrm_tpu_torch.train.trainer import (
+    CheckpointWriter, _pad_batch, _write_npz, _write_pickle, use_device,
+)
 
 
 def _check_fulltable(cfg: Config) -> None:
@@ -43,9 +49,6 @@ def _check_fulltable(cfg: Config) -> None:
     unsupported = {
         "world_size > 1 (multi-GPU)": cfg.world_size > 1,
         "coordinator_address (multi-host)": bool(cfg.coordinator_address),
-        "qr_flag (QR tables)": cfg.qr_flag,
-        "md_flag (mixed-dimension tables)": cfg.md_flag,
-        "enable_profiling": cfg.enable_profiling,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
@@ -68,24 +71,35 @@ class FullTableDlrmTrainer:
         self.dataset = dataset
         self.test_dataset = test_dataset
         self.device = torch.device(device)
+        use_device(self.device)
         # one generator, drawn in cdlrm_tpu's order (fulltable.py:42-57)
         rng = np.random.default_rng(cfg.numpy_rand_seed)
         self.params = init_dlrm(rng, cfg.ln_bot, cfg.ln_top, device=self.device)
-        self.tables, offsets = init_embedding_tables(rng, cfg.ln_emb, cfg.m_spa,
-                                                     device=self.device)
+        # the plain tables flat, their starts, and one entry per table: None
+        # for a plain one, else its QRParams or MDParams
+        self.tables, offsets, entries = init_embedding_tables(
+            rng, cfg.ln_emb, cfg.m_spa_per_table if cfg.md_flag else cfg.m_spa,
+            device=self.device, qr_flag=cfg.qr_flag, qr_collisions=cfg.qr_collisions,
+            qr_threshold=cfg.qr_threshold, qr_operation=cfg.qr_operation,
+            md_flag=cfg.md_flag, md_threshold=cfg.md_threshold,
+        )
         self.table_offsets = offsets
         self._offsets = torch.from_numpy(offsets).to(self.device)
+        self.emb_entries = entries
+        # the steps' keyword for compressed tables; none when all are plain
+        self._entries_kw = (
+            {"entries": entries} if any(e is not None for e in entries) else {}
+        )
         # AdaGrad state (cdlrm_tpu fulltable.py:59-72): element-wise dense
         # accumulators and one row-wise accumulator per table row, held flat
         # [sum(n)] like the tables
         self._adagrad = cfg.optimizer == "adagrad"
         self.dense_acc = self.emb_acc = None
         if self._adagrad:
-            self.dense_acc = {k: [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in v]
-                              for k, v in self.params.items()}
+            self.dense_acc = map_params(torch.zeros_like, self.params)
             self.emb_acc = torch.zeros(self.tables.shape[0], dtype=torch.float32,
                                        device=self.device)
-        self._ckpt_writer = CheckpointWriter()
+        self._ckpt_writer = CheckpointWriter(self.device)
         scfg = step_lib.StepConfig(
             interaction_op=cfg.arch_interaction_op,
             interaction_itself=cfg.arch_interaction_itself,
@@ -105,13 +119,16 @@ class FullTableDlrmTrainer:
         self._lr_emb = float(np.float32(cfg.lr_embeds))
         self.global_step = 0
 
-    def emb_tables(self, flat: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-        """The per-table views of the flat tables ([n, D]; cdlrm_tpu's
-        ``params['emb']`` list), or of another tensor laid out by table row,
-        such as the row-wise accumulators ([n])."""
+    def emb_tables(self, flat: Optional[torch.Tensor] = None) -> list:
+        """cdlrm_tpu's ``params['emb']`` list: per table, the view of its
+        rows in the flat tables ([n, D]) or its ``QRParams`` / ``MDParams``
+        entry. With ``flat`` given, the per-table views of another tensor
+        laid out by plain-table row, such as the row-wise accumulators
+        ([n])."""
         flat = self.tables if flat is None else flat
         ends = list(self.table_offsets[1:]) + [flat.shape[0]]
-        return [flat[a:b] for a, b in zip(self.table_offsets, ends)]
+        views = iter(flat[a:b] for a, b in zip(self.table_offsets, ends))
+        return [next(views) if e is None else e for e in self.emb_entries]
 
     def _put(self, batch: Batch):
         """x, ls_i, the mask (all False for single-index batches) and the
@@ -131,6 +148,7 @@ class FullTableDlrmTrainer:
         ``print_freq`` batches of an epoch. Each step's loss and accuracy
         stay on the device until the next log."""
         cfg = self.cfg
+        use_device(self.device)
         b = cfg.mini_batch_size
         pending: List[torch.Tensor] = []  # (loss_sum, correct) device scalars
         loss_carry = corr_carry = n_carry = 0.0
@@ -159,7 +177,7 @@ class FullTableDlrmTrainer:
                                                 self._lr, self._lr_emb)
                 else:
                     self.params, self.tables, loss_sum, correct = self.train_step(
-                        *inputs, self._lr, self._lr_emb
+                        *inputs, self._lr, self._lr_emb, **self._entries_kw
                     )
                 self.global_step += 1
                 if (cfg.checkpoint_freq > 0 and cfg.save_model
@@ -189,6 +207,7 @@ class FullTableDlrmTrainer:
     def evaluate(self, max_batches: Optional[int] = None, log_fn=print):
         """Eval over the test stream; returns (accuracy, auc). A short last
         batch is padded to the eval batch size and its padding dropped."""
+        use_device(self.device)
         total, correct = 0, 0
         auc = StreamingAUC()
         tb = self.cfg.test_mini_batch_size
@@ -198,7 +217,8 @@ class FullTableDlrmTrainer:
             n = batch.x.shape[0]
             batch = _pad_batch(batch, tb)
             x, ls_i, mask, _ = self._put(batch)
-            scores = self.eval_step(self.params, self.tables, self._offsets, x, ls_i, mask)
+            scores = self.eval_step(self.params, self.tables, self._offsets, x, ls_i, mask,
+                                    **self._entries_kw)
             scores = scores.cpu().numpy()[:n]
             correct += accuracy_count(scores, batch.y[:n])
             total += n
@@ -212,8 +232,10 @@ class FullTableDlrmTrainer:
         """Save in cdlrm_tpu's full-table format (fulltable.py:193-211):
         ``fulltable_params.npz`` and, under AdaGrad, ``fulltable_acc.npz``
         (``leaf_i`` in jax.tree_util.tree_flatten order of {"bot", "emb",
-        "top"}: every bottom (W, b), every table, every top (W, b); the
-        ``emb`` accumulators as per-table [n] arrays), and ``meta.pkl``
+        "top"}: every bottom (W, b), every table, every top (W, b); a QR
+        table is ``weight_q, weight_r``, an MD table ``weight`` and, where it
+        has one, ``proj``; the ``emb`` accumulators as per-table [n]
+        arrays), and ``meta.pkl``
         with the global step. The state is copied to the host here; the
         files are written by a :class:`CheckpointWriter`, on a background
         thread with ``checkpoint_async``."""
@@ -221,7 +243,7 @@ class FullTableDlrmTrainer:
         os.makedirs(path, exist_ok=True)
 
         def leaves(params, emb) -> dict:
-            tree = {"bot": params["bot"], "emb": emb, "top": params["top"]}
+            tree = {"bot": params["bot"], "emb": emb_leaves(emb), "top": params["top"]}
             return {f"leaf_{i}": a for i, a in enumerate(params_to_jax(tree))}
 
         writes = [(_write_npz, os.path.join(path, "fulltable_params.npz"),
@@ -252,15 +274,22 @@ class FullTableDlrmTrainer:
                 "optimizer='sgd'; resuming would silently drop the "
                 "accumulators: pass --optimizer adagrad"
             )
+        use_device(self.device)
         n_bot, n_top = len(self.params["bot"]), len(self.params["top"])
-        n_emb = len(self.table_offsets)
 
-        def load(file: str) -> dict:
+        def load(file: str, n_emb: int) -> dict:
+            n_leaves = 2 * (n_bot + n_top) + n_emb
             with np.load(os.path.join(path, file)) as data:
-                leaves = [data[f"leaf_{i}"] for i in range(2 * (n_bot + n_top) + n_emb)]
+                if len(data.files) != n_leaves:
+                    raise ValueError(
+                        f"{file} holds {len(data.files)} leaves, this config's model "
+                        f"{n_leaves} (qr_flag, md_flag or the thresholds differ)"
+                    )
+                leaves = [data[f"leaf_{i}"] for i in range(n_leaves)]
             return params_from_jax(leaves, n_bot=n_bot, n_emb=n_emb, device=self.device)
 
         def copy_rows(dst_views, src):
+            src = list(src)
             for dst, s in zip(dst_views, src):
                 if tuple(dst.shape) != tuple(s.shape):
                     raise ValueError(
@@ -268,12 +297,14 @@ class FullTableDlrmTrainer:
                     )
                 dst.copy_(s)
 
-        loaded = load("fulltable_params.npz")
-        copy_rows(self.emb_tables(), loaded.pop("emb"))
+        dst = emb_leaves(self.emb_tables())
+        loaded = load("fulltable_params.npz", len(dst))
+        copy_rows(dst, loaded.pop("emb"))
         self.params = loaded
         if self._adagrad:
-            acc = load("fulltable_acc.npz")
-            copy_rows(self.emb_tables(self.emb_acc), acc.pop("emb"))
+            dst = self.emb_tables(self.emb_acc)
+            acc = load("fulltable_acc.npz", len(dst))
+            copy_rows(dst, acc.pop("emb"))
             self.dense_acc = acc
         with open(os.path.join(path, "meta.pkl"), "rb") as f:
             self.global_step = pickle.load(f)["global_step"]

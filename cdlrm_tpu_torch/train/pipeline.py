@@ -106,6 +106,9 @@ class AssemblyPipeline(threading.Thread):
         b = tr.cfg.mini_batch_size
         b_loc = tr.cfg.local_batch_size
         try:
+            # this thread copies each batch to the device: the current CUDA
+            # device is a per-thread setting
+            tr.use_device()
             win = -1
             replay = self.start_j % self.lookahead != 0
             for epoch in range(self.start_epoch, self.nepochs):

@@ -26,9 +26,12 @@ import numpy as np
 import torch
 
 from cdlrm_tpu_torch.cache.geometry import CacheGeometry
-from cdlrm_tpu_torch.models.dlrm import compute_loss, dlrm_forward
-from cdlrm_tpu_torch.models.embedding import embedding_forward, global_rows
+from cdlrm_tpu_torch.models.dlrm import (
+    compute_loss, dense_from_leaves, dlrm_forward, param_leaves,
+)
+from cdlrm_tpu_torch.models.embedding import embedding_forward, global_rows, lookup_rows
 from cdlrm_tpu_torch.models.embedding import pool as _pool
+from cdlrm_tpu_torch.models.mlp import cast_matmul
 from cdlrm_tpu_torch.ops.lookup import gather_rows, index_add_rows
 from cdlrm_tpu_torch.ops.scatter import scatter_add_rows, scatter_set_rows
 
@@ -72,6 +75,18 @@ class StepConfig(NamedTuple):
     # per-lookup gradients accumulate in a pending buffer in block-union row
     # space and the cache takes one row add per block (make_cached_train_step)
     block_coalesce: bool = False
+    # refill insert rows and per-batch miss rows arrive as bfloat16 and are
+    # widened before they are set into the float32 cache; evicted rows are
+    # rounded to bfloat16 on the device before they leave it
+    # (Config.wire_rows_bf16)
+    wire_rows_bf16: bool = False
+    # cached mixed-dimension tables: the cache holds zero-padded [., D] rows
+    # and each table's pooled output goes through its projection
+    # ``params["md_proj"][t]`` [D, D] (_apply_md_proj). ``md_train_mask`` [T]
+    # is 0.0 for a table of full width, whose projection is a frozen
+    # identity, else 1.0
+    md_proj: bool = False
+    md_train_mask: Tuple[float, ...] = ()
 
     @property
     def cdtype(self) -> Optional[torch.dtype]:
@@ -208,32 +223,60 @@ class _TableOffsets:
         return offs
 
 
+def _upcast_x(x: torch.Tensor, cdtype: Optional[torch.dtype]) -> torch.Tensor:
+    """Dense features shipped as float8_e4m3fn (Config.wire_x_fp8) are
+    widened once at step entry, to the compute dtype (float32 when none);
+    cdlrm_tpu ``_upcast_x``, step.py:338."""
+    if x.dtype == torch.float8_e4m3fn:
+        return x.to(cdtype if cdtype is not None else torch.float32)
+    return x
+
+
 def _stage_aux(cache, aux_slots, aux_rows, trash_row: int) -> None:
     """Set the batch's miss rows into the aux region. The valid prefix is
     counted on the device: the aux bucket is padded with the trash row,
-    which no miss is ever staged into."""
+    which no miss is ever staged into. Rows of the bfloat16 row wire are
+    widened first (exact): the kernel takes float32 rows."""
     nv_aux = (aux_slots != trash_row).sum()
-    scatter_set_rows(cache, aux_slots, aux_rows, nv_aux)
+    scatter_set_rows(cache, aux_slots, aux_rows.to(torch.float32), nv_aux)
+
+
+def _apply_md_proj(ly: torch.Tensor, proj: torch.Tensor,
+                   cdtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The per-table projection of cached mixed-dimension tables, after
+    pooling (cdlrm_tpu ``_apply_md_proj``, step.py:443): one batched
+    [T, B, D] x [T, D, D] product, operands rounded to the compute dtype,
+    float32 sums, the result rounded to the compute dtype. It is small next
+    to the MLPs. The pad rows of each projection are zero, so the padded
+    columns of a cache row contribute nothing and their gradient is exactly
+    zero: the zero-padded cache layout stays as it is under SGD."""
+    out = cast_matmul(ly, proj, cdtype)
+    return out if cdtype is None else out.to(cdtype).float()
 
 
 def _value_and_grad(cfg: StepConfig, pooled_width: int, params, leaf, expand, x,
-                    ls_mask, targets, t_count: int, b_loc: int, d: int):
+                    ls_mask, targets, t_count: int, b_loc: int):
     """Loss, probabilities, and the gradients with respect to the dense
     parameters and ``leaf`` (jax.value_and_grad over (params, rows),
-    cdlrm_tpu step.py:675-677). ``expand`` maps the leaf to the per-lookup
-    rows [T*B(*P), D]."""
-    flat = [p.detach().requires_grad_() for key in ("bot", "top")
-            for pair in params[key] for p in pair]
-    it = iter(flat)
-    live = {key: [(next(it), next(it)) for _ in params[key]] for key in ("bot", "top")}
-    ly = _pool(expand(leaf), ls_mask, t_count, b_loc, d, pooled_width)
+    cdlrm_tpu step.py:675-677). ``leaf`` is one tensor or a list of them
+    (its gradient comes back alike); ``expand`` maps it to the per-lookup
+    rows [T*B(*P), D]. The dense gradients come in :func:`param_leaves` order
+    (with ``md_proj``'s between the bottom and the top MLP's)."""
+    flat = [p.detach().requires_grad_() for p in param_leaves(params)]
+    live = dense_from_leaves(flat, params)
+    rows = expand(leaf)
+    ly = _pool(rows, ls_mask, t_count, b_loc, rows.shape[-1], pooled_width)
+    if cfg.md_proj:
+        ly = _apply_md_proj(ly, live["md_proj"], cfg.cdtype)
     p = dlrm_forward(
         live, x, ly, cfg.interaction_op, cfg.interaction_itself,
         cfg.loss_threshold, cfg.cdtype,
     )
     loss = compute_loss(p, targets, cfg.loss_function, cfg.loss_weights)
-    grads = torch.autograd.grad(loss, flat + [leaf])
-    return loss.detach(), p.detach(), grads[:-1], grads[-1]
+    many = isinstance(leaf, (list, tuple))
+    grads = torch.autograd.grad(loss, flat + (list(leaf) if many else [leaf]))
+    dleaf = grads[len(flat):]
+    return loss.detach(), p.detach(), grads[:len(flat)], (list(dleaf) if many else dleaf[0])
 
 
 def _dense_adagrad(params, dflat, lr, dense_acc, eps: float):
@@ -271,6 +314,13 @@ def _rowwise_adagrad_scale(d_rows, acc_rows, lr_embeds: float, eps: float):
     return scale[:, None] * d_rows, acc_rows
 
 
+@functools.lru_cache(maxsize=None)
+def _md_mask(mask: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """``md_train_mask`` as a [T, 1, 1] float32 tensor on ``device``, copied
+    there once."""
+    return torch.tensor(mask, dtype=torch.float32, device=device)[:, None, None]
+
+
 def _finish(cfg: StepConfig, params, dflat, p, loss, targets, lr, b_loc: int,
             dense_acc=None):
     """The dense update, SGD or AdaGrad, and the step's metrics (cdlrm_tpu
@@ -279,11 +329,15 @@ def _finish(cfg: StepConfig, params, dflat, p, loss, targets, lr, b_loc: int,
     if cfg.optimizer == "adagrad":
         params, dense_acc = _dense_adagrad(params, dflat, lr, dense_acc, cfg.adagrad_eps)
     else:
-        it = iter(dflat)
-        params = {
-            key: [(w - lr * next(it), b - lr * next(it)) for w, b in params[key]]
-            for key in ("bot", "top")
-        }
+        dflat = list(dflat)
+        if cfg.md_proj:
+            # the identity projections of full-width tables stay frozen
+            # (cdlrm_tpu _sync_dense_grads' md_mask, step.py:480-483)
+            i = 2 * len(params["bot"])
+            dflat[i] = dflat[i] * _md_mask(cfg.md_train_mask, dflat[i].device)
+        params = dense_from_leaves(
+            [w - lr * g for w, g in zip(param_leaves(params), dflat)], params
+        )
     # torch.round, like jnp.round, rounds half to even
     correct = (torch.round(p) == targets).to(torch.float32).sum()
     return params, dense_acc, loss * b_loc, correct
@@ -292,6 +346,9 @@ def _finish(cfg: StepConfig, params, dflat, p, loss, targets, lr, b_loc: int,
 def _check_optimizer(cfg: StepConfig) -> None:
     if cfg.optimizer not in ("sgd", "adagrad"):
         raise ValueError(f"optimizer must be sgd|adagrad, got {cfg.optimizer!r}")
+    if cfg.optimizer == "adagrad" and cfg.md_proj:
+        # Config.finalize refuses it too: AdaGrad supports plain tables only
+        raise ValueError("optimizer='adagrad' does not support md_proj")
 
 
 def make_cached_train_step(
@@ -369,18 +426,18 @@ def make_cached_train_step(
 
     def body(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets,
              lr, lr_embeds):
+        x = _upcast_x(x, cfg.cdtype)
         b_loc = targets.shape[0]
         if cfg.wire_pack:
             n_lk = b_loc * max(1, pooled_width)
             slots = _unpack_slots(slots, offsets(slots.device), trash, cfg.wire_bits, n_lk)
         targets = targets.to(torch.float32)
         t_count = slots.shape[0]
-        d = cache.shape[-1]
         _stage_aux(cache, aux_slots, aux_rows, trash)
         flat_slots = slots.reshape(-1)
         rows = gather_rows(cache, flat_slots).requires_grad_()
         loss, p, dflat, drows = value_and_grad(
-            params, rows, lambda r: r, x, ls_mask, targets, t_count, b_loc, d
+            params, rows, lambda r: r, x, ls_mask, targets, t_count, b_loc
         )
         # sparse SGD: the atomic row add sums duplicate slots (DESIGN.md D3).
         # Masked multi-hot lanes all carry slot=trash with exactly zero
@@ -411,11 +468,11 @@ def make_cached_train_step(
             dense_acc, embed_acc, lr, lr_embeds = tail
         else:
             (lr, lr_embeds), dense_acc = tail, None
+        x = _upcast_x(x, cfg.cdtype)
         b_loc = targets.shape[0]
         n_lk = b_loc * max(1, pooled_width)
         targets = targets.to(torch.float32)
         t_count = inv_wire.shape[0]
-        d = cache.shape[-1]
         _stage_aux(cache, aux_slots, aux_rows, trash)
         uniq_slots, ginv = decode(inv_wire, uniq_wire, uniq_counts, n_lk)
         rows_u = gather_rows(cache, uniq_slots).requires_grad_()  # [Ub, D]
@@ -424,7 +481,7 @@ def make_cached_train_step(
         # does in cdlrm_tpu (step.py:779-787)
         loss, p, dflat, d_rows_u = value_and_grad(
             params, rows_u, lambda r: gather_rows(r, ginv), x, ls_mask, targets,
-            t_count, b_loc, d,
+            t_count, b_loc,
         )
         if adagrad:
             # the row-wise state rides along at the same unique slots
@@ -458,10 +515,10 @@ def make_cached_train_step(
         weight w_eff = cache - lr * pending, the per-lookup gradients go into
         the pending buffer, and the cache is written only by the aux staging;
         the block's flush applies the pending rows."""
+        x = _upcast_x(x, cfg.cdtype)
         b_loc = targets.shape[0]
         targets = targets.to(torch.float32)
         t_count = inv_wire.shape[0]
-        d = cache.shape[-1]
         p_trash = pend.shape[0] - 1  # host contract: the last pending row
         _stage_aux(cache, aux_slots, aux_rows, trash)
         uniq_slots, ginv = _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts)
@@ -474,7 +531,7 @@ def make_cached_train_step(
         # pending, with no [Ub, D] segment sum
         rows_exp = gather_rows(w_eff, ginv).requires_grad_()
         loss, p, dflat, drows = value_and_grad(
-            params, rows_exp, lambda r: r, x, ls_mask, targets, t_count, b_loc, d
+            params, rows_exp, lambda r: r, x, ls_mask, targets, t_count, b_loc
         )
         blk_rank = uniq_blk[ginv.long()]  # [N] per-lookup block ranks
         # aux, trash and masked lanes carry rank p_trash: zero their
@@ -552,6 +609,7 @@ def make_cached_eval_step(
     offsets = _TableOffsets(geo)
 
     def step(params, cache, x, slots, ls_mask, aux_slots, aux_rows):
+        x = _upcast_x(x, cdtype)
         b_loc = x.shape[0]
         if cfg.wire_pack:
             n_lk = b_loc * max(1, pooled_width)
@@ -561,6 +619,8 @@ def make_cached_eval_step(
         _stage_aux(cache, aux_slots, aux_rows, geo.trash_row)
         rows = gather_rows(cache, slots.reshape(-1))
         ly = _pool(rows, ls_mask, t_count, b_loc, cache.shape[-1], pooled_width)
+        if cfg.md_proj:
+            ly = _apply_md_proj(ly, params["md_proj"], cdtype)
         p = dlrm_forward(
             params, x, ly, cfg.interaction_op, cfg.interaction_itself,
             cfg.loss_threshold, cdtype,
@@ -584,7 +644,9 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
     state) are gathered before the insert, so they carry the values to write
     back; then the insert sets its rows in place, and the inserted slots'
     state becomes ``insert_acc`` (the ids' state from the host store), or 0
-    under plain AdaGrad, where an inserted slot holds a fresh id. Both slot
+    under plain AdaGrad, where an inserted slot holds a fresh id. With
+    ``cfg.wire_rows_bf16`` the insert rows arrive as bfloat16 and the
+    evicted rows leave as bfloat16 (cdlrm_tpu step.py:1223-1240). Both slot
     buffers are padded to a power-of-two bucket on the host: insert padding
     targets the trash row (outside the rows' valid prefix, so never written;
     its state is set to the padding's 0, which it already holds), evict
@@ -602,10 +664,15 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
     def step(cache, insert_slots, insert_rows, evict_slots, accum=None, insert_acc=None):
         evicted = gather_rows(cache, evict_slots)
         ev_acc = accum[evict_slots.long()] if master_state else None
+        if cfg.wire_rows_bf16:
+            # the writeback's device-to-host copy moves half the bytes; the
+            # evicted accumulators stay float32
+            evicted = evicted.to(torch.bfloat16)
         # inserts never target the trash row, so the valid prefix is
-        # countable on the device (cdlrm_tpu step.py:1229-1237)
+        # countable on the device (cdlrm_tpu step.py:1229-1237). Rows of the
+        # bfloat16 row wire are widened first: the kernel takes float32 rows
         nv_ins = (insert_slots != trash_row).sum()
-        scatter_set_rows(cache, insert_slots, insert_rows, nv_ins)
+        scatter_set_rows(cache, insert_slots, insert_rows.to(torch.float32), nv_ins)
         if master_state:
             accum[insert_slots.long()] = insert_acc
             return cache, accum, evicted, ev_acc
@@ -627,7 +694,8 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
     make_fulltable_train_step, step.py:1417, one device)::
 
         SGD:     step(params, tables, offsets, x, ls_i, ls_mask, targets, lr,
-                      lr_embeds) -> (params, tables, loss_sum, correct)
+                      lr_embeds, entries=None)
+                      -> (params, tables, loss_sum, correct)
         AdaGrad: step(params, tables, offsets, x, ls_i, ls_mask, targets,
                       dense_acc, emb_acc, lr, lr_embeds)
                       -> (params, tables, dense_acc, emb_acc, loss_sum, correct)
@@ -645,6 +713,17 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
     summed gradient per row, and rows the batch does not touch stay as they
     are, as ``w - lr * 0`` leaves them.
 
+    With QR or mixed-dimension tables (SGD only) ``entries`` is the
+    per-table list of models/embedding.py::init_embedding_tables: None for a
+    plain table, whose rows live in ``tables`` (``offsets`` then has one
+    start per plain table) and keep the distinct-row update above, else the
+    table's ``QRParams`` or ``MDParams``. A compressed table's tensors are
+    small by construction and take cdlrm_tpu's own update: each lookup goes
+    through ``gather_rows``, whose backward accumulates the dense ``[n, d]``
+    gradient, and ``w -= lr_embeds * g`` is applied to the whole tensor, in
+    place; an MD projection trains with ``lr_embeds`` too, as a leaf of
+    cdlrm_tpu's ``params["emb"]`` does.
+
     AdaGrad holds one flat ``[sum(n)]`` row-wise accumulator ``emb_acc``
     (updated in place) beside the dense ``dense_acc``, and scales the
     distinct rows' gradients with ``_rowwise_adagrad_scale`` before the same
@@ -654,36 +733,58 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
     _check_optimizer(cfg)
     adagrad = cfg.optimizer == "adagrad"
 
-    def step(params, tables, offsets, x, ls_i, ls_mask, targets, *tail):
+    def step(params, tables, offsets, x, ls_i, ls_mask, targets, *tail, entries=None):
         if adagrad:
             dense_acc, emb_acc, lr, lr_embeds = tail
         else:
             (lr, lr_embeds), dense_acc = tail, None
+        compressed = [e for e in entries or () if e is not None]
+        if compressed and adagrad:
+            raise ValueError("optimizer='adagrad' supports plain embeddings only")
         t_count, b_loc = ls_i.shape[:2]
         # bags are pooled where the lookups have a P axis, as cdlrm_tpu's
         # embedding_forward decides by the index rank
         pooled_width = ls_i.shape[2] if pooled and ls_i.dim() == 3 else 0
         targets = targets.to(torch.float32)
-        # torch.unique waits for the device (its output size is data
-        # dependent): acceptable for the full-table trainer, an oracle and a
-        # small-config path, not for the cached hot loop
-        uniq, inv = torch.unique(global_rows(ls_i, offsets), return_inverse=True)
-        inv = inv.to(torch.int32)
-        rows_u = gather_rows(tables, uniq).requires_grad_()  # [U, D]
-        loss, p, dflat, d_rows_u = _value_and_grad(
-            cfg, pooled_width, params, rows_u, lambda r: gather_rows(r, inv), x,
-            ls_mask, targets, t_count, b_loc, tables.shape[1],
+        plain_ids = ls_i[[t for t, e in enumerate(entries) if e is None]] if compressed else ls_i
+        leaves = []
+        if plain_ids.shape[0]:
+            # torch.unique waits for the device (its output size is data
+            # dependent): acceptable for the full-table trainer, an oracle
+            # and a small-config path, not for the cached hot loop
+            uniq, inv = torch.unique(global_rows(plain_ids, offsets), return_inverse=True)
+            inv = inv.to(torch.int32)
+            leaves.append(gather_rows(tables, uniq).requires_grad_())  # rows_u [U, D]
+        n_plain = len(leaves)
+        leaves += [w.detach().requires_grad_() for e in compressed for w in e.leaves()]
+
+        def expand(lv):
+            if not compressed:
+                return gather_rows(lv[0], inv)
+            it = iter(lv[n_plain:])
+            live = [e if e is None else e.with_leaves([next(it) for _ in e.leaves()])
+                    for e in entries]
+            return lookup_rows(live, lambda _ids: gather_rows(lv[0], inv), ls_i)
+
+        loss, p, dflat, dleaves = _value_and_grad(
+            cfg, pooled_width, params, leaves, expand, x, ls_mask, targets, t_count, b_loc,
         )
-        if adagrad:
-            u_idx = uniq.long()
-            delta, acc_rows = _rowwise_adagrad_scale(
-                d_rows_u, emb_acc[u_idx], lr_embeds, cfg.adagrad_eps
-            )
-            emb_acc[u_idx] = acc_rows
-        else:
-            delta = -lr_embeds * d_rows_u
-        nv = torch.full((1,), uniq.shape[0], dtype=torch.int64, device=tables.device)
-        scatter_add_rows(tables, uniq, delta, nv)
+        if n_plain:
+            d_rows_u = dleaves[0]
+            if adagrad:
+                u_idx = uniq.long()
+                delta, acc_rows = _rowwise_adagrad_scale(
+                    d_rows_u, emb_acc[u_idx], lr_embeds, cfg.adagrad_eps
+                )
+                emb_acc[u_idx] = acc_rows
+            else:
+                delta = -lr_embeds * d_rows_u
+            nv = torch.full((1,), uniq.shape[0], dtype=torch.int64, device=tables.device)
+            scatter_add_rows(tables, uniq, delta, nv)
+        grads = iter(dleaves[n_plain:])
+        for e in compressed:
+            for w in e.leaves():
+                w.sub_(lr_embeds * next(grads))
         params, dense_acc, loss_sum, correct = _finish(
             cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc
         )
@@ -696,11 +797,11 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
 
 def make_fulltable_eval_step(cfg: StepConfig, pooled: bool = False) -> Callable:
     """Forward-only full-table step (cdlrm_tpu make_fulltable_eval_step,
-    step.py:1504): ``step(params, tables, offsets, x, ls_i, ls_mask) ->
-    scores [B, 1]``."""
+    step.py:1504): ``step(params, tables, offsets, x, ls_i, ls_mask,
+    entries=None) -> scores [B, 1]``; ``entries`` as for the train step."""
 
-    def step(params, tables, offsets, x, ls_i, ls_mask):
-        ly = embedding_forward(tables, offsets, ls_i, ls_mask if pooled else None)
+    def step(params, tables, offsets, x, ls_i, ls_mask, entries=None):
+        ly = embedding_forward(tables, offsets, ls_i, ls_mask if pooled else None, entries)
         return dlrm_forward(
             params, x, ly, cfg.interaction_op, cfg.interaction_itself,
             cfg.loss_threshold, cfg.cdtype,

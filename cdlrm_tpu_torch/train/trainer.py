@@ -52,18 +52,35 @@ import torch
 
 from cdlrm_tpu_torch.cache.geometry import CacheGeometry
 from cdlrm_tpu_torch.cache.host_cache import HostCacheController, InsertPlan, build_insert_plan
-from cdlrm_tpu_torch.cache.master import AccumulatorStore, MasterTables, VirtualMasterTables
+from cdlrm_tpu_torch.cache.master import (
+    AccumulatorStore, MasterTables, MDMasterTables, VirtualMasterTables,
+)
 from cdlrm_tpu_torch.cache.prefetcher import EvictionManager, LookaheadPrefetcher, WindowData
 from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.data.synthetic import Batch
 from cdlrm_tpu_torch.ops import native
 from cdlrm_tpu_torch.utils.metrics import StreamingAUC, accuracy_count
 from cdlrm_tpu_torch.utils.padding import pad_to_bucket, pow2_bucket
-from cdlrm_tpu_torch.models.dlrm import init_dlrm, params_from_jax, params_to_jax
+from cdlrm_tpu_torch.models.dlrm import (
+    param_leaves, init_dlrm, map_params, params_from_jax, params_to_jax,
+)
+from cdlrm_tpu_torch.models.tricks import xavier_uniform
+from cdlrm_tpu_torch.parallel.multihost import RowShard, ShardedMasterTables
 from cdlrm_tpu_torch.train import step as step_lib
 
 # checkpoint layout versions this loader reads (cdlrm_tpu save_checkpoint)
 CHECKPOINT_FORMAT_VERSION = 3
+
+
+def use_device(device: torch.device) -> None:
+    """Make ``device`` the calling thread's current CUDA device (nothing to
+    do for the CPU). The kernel wrappers launch on the operands' device's
+    current stream and size their grids from the current device, so every
+    thread that launches CUDA work for a trainer calls this first: the current
+    device is a per-thread setting. A device given without an index
+    (``torch.device("cuda")``) means the current one already."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
 
 
 @dataclass
@@ -156,6 +173,7 @@ class _WindowStager(threading.Thread):
 
     def run(self) -> None:
         try:
+            use_device(self.trainer.device)
             while not self._stop_event.is_set():
                 try:
                     window = self.trainer.prefetcher.get_window(timeout=0.1)
@@ -220,7 +238,8 @@ class CheckpointWriter:
     for an outstanding writer and re-raises its error; save, load and close
     call it. ``write_s`` is the last write phase's wall time."""
 
-    def __init__(self):
+    def __init__(self, device: torch.device):
+        self.device = device  # made current on the writer thread
         self.thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.write_s = 0.0
@@ -229,6 +248,7 @@ class CheckpointWriter:
         def run_writes():
             t0 = time.perf_counter()
             try:
+                use_device(self.device)
                 for fn, path, data in writes:
                     fn(path, data)
             except BaseException as e:  # raised at the next join
@@ -262,13 +282,8 @@ def _check_slice(cfg: Config) -> None:
     unsupported = {
         "world_size > 1 (multi-GPU)": cfg.world_size > 1,
         "coordinator_address (multi-host)": bool(cfg.coordinator_address),
-        "md_flag (cached mixed-dimension tables)": cfg.md_flag,
-        "qr_flag (QR tables, full-table path)": cfg.qr_flag,
-        "wire_rows_bf16": cfg.wire_rows_bf16,
-        "wire_x_fp8": cfg.wire_x_fp8,
         "hot_tier_rows > 0 (hot tier)": cfg.hot_tier_rows > 0,
         "sorted_dedup_wire": cfg.sorted_dedup_wire,
-        "enable_profiling": cfg.enable_profiling,
     }
     bad = [name for name, on in unsupported.items() if on]
     if bad:
@@ -295,6 +310,7 @@ class CachedDlrmTrainer:
         self.dataset = dataset
         self.test_dataset = test_dataset
         self.device = torch.device(device)
+        use_device(self.device)
         if pooled_width is None:
             first = next(iter(dataset.batches()))
             pooled_width = 0 if first.ls_mask is None else first.ls_i.shape[2]
@@ -314,11 +330,34 @@ class CachedDlrmTrainer:
         self._wire_bits = step_lib.wire_width(int(rows_per_table.max()) - 1)
         self._wire_pack = bool(cfg.pack_wire and self._wire_bits <= step_lib.WIRE_MAX_BITS)
         _check_slice(cfg)
+        if cfg.qr_flag:
+            # cdlrm_tpu's error (trainer.py:285-294)
+            raise ValueError(
+                "qr_flag with the cached path: QR-compressed tables are "
+                "small by construction — train them full-resident with "
+                "--no-use-cache (FullTableDlrmTrainer)"
+            )
 
         # one generator, drawn in cdlrm_tpu's order: masters, then the dense
-        # weights — the same seed gives both packages the same values
+        # weights, then the mixed-dimension projections: the same seed gives
+        # both packages the same values
         rng = np.random.default_rng(cfg.numpy_rand_seed)
-        if cfg.master_init == "virtual":
+        if cfg.md_flag:
+            # cached mixed-dimension tables (cdlrm_tpu trainer.py:295-315):
+            # compact [n_t, d_t] masters that put zero-padded [., m_spa] rows
+            # on the wire; the cache stays [R, m_spa]
+            if cfg.master_init == "virtual":
+                # procedural compact masters: one whole shard, so that the
+                # values match any multi-host topology's
+                self.master = ShardedMasterTables(
+                    cfg.ln_emb, cfg.m_spa, RowShard(0, 1), rng, dims=cfg.m_spa_per_table,
+                )
+            else:
+                self.master = MDMasterTables(
+                    cfg.ln_emb, cfg.m_spa_per_table, cfg.m_spa, rng,
+                    mmap_dir=cfg.master_mmap_dir or None,
+                )
+        elif cfg.master_init == "virtual":
             self.master = VirtualMasterTables(cfg.ln_emb, cfg.m_spa, rng)
         else:
             self.master = MasterTables(
@@ -333,6 +372,23 @@ class CachedDlrmTrainer:
             self.geo, seed=cfg.numpy_rand_seed, ln_emb=cfg.ln_emb, slot_map=use_map,
         )
         self.params = init_dlrm(rng, cfg.ln_bot, cfg.ln_top, device=self.device)
+        md_mask: Tuple[float, ...] = ()
+        if cfg.md_flag:
+            # per-table projections [T, D, D] (cdlrm_tpu trainer.py:343-363):
+            # a xavier [d_t, D] block, zero rows below it; a table of full
+            # width gets a frozen identity (mask 0.0)
+            dim = cfg.m_spa
+            proj = np.zeros((len(cfg.ln_emb), dim, dim), np.float32)
+            mask = []
+            for t, d_t in enumerate(cfg.m_spa_per_table):
+                if d_t == dim:
+                    proj[t] = np.eye(dim, dtype=np.float32)
+                    mask.append(0.0)
+                else:
+                    proj[t, :d_t] = xavier_uniform(rng, (int(d_t), dim))
+                    mask.append(1.0)
+            self.params["md_proj"] = torch.from_numpy(proj).to(self.device)
+            md_mask = tuple(mask)
         self.cache = torch.zeros(
             (self.geo.total_rows, self.geo.dim), dtype=torch.float32, device=self.device
         )
@@ -344,15 +400,14 @@ class CachedDlrmTrainer:
         if self._adagrad:
             self.embed_acc = torch.zeros(self.geo.total_rows, dtype=torch.float32,
                                          device=self.device)
-            self.dense_acc = {k: [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in v]
-                              for k, v in self.params.items()}
+            self.dense_acc = map_params(torch.zeros_like, self.params)
         # adagrad_master_state: evicted ids' row-wise state writes back to
         # this host store with their rows, and inserted ids resume it
         self._acc_master = (
             AccumulatorStore(cfg.ln_emb) if self._adagrad and cfg.adagrad_master_state
             else None
         )
-        self._ckpt_writer = CheckpointWriter()
+        self._ckpt_writer = CheckpointWriter(self.device)
 
         # wire choice per window (cdlrm_tpu trainer.py:446-460): 'on' always
         # takes the dedup wire (packed or unpacked as the slot wire is),
@@ -396,6 +451,9 @@ class CachedDlrmTrainer:
             optimizer=cfg.optimizer,
             adagrad_eps=cfg.adagrad_eps,
             adagrad_master_state=cfg.adagrad_master_state,
+            wire_rows_bf16=cfg.wire_rows_bf16,
+            md_proj=bool(cfg.md_flag),
+            md_train_mask=md_mask,
         )
         self.step_cfg = scfg
         self._step_cache: dict = {}  # (size, dedup, coalesce) -> step (_get_step)
@@ -460,9 +518,29 @@ class CachedDlrmTrainer:
         self._metrics_fp.write(json.dumps({"kind": kind, "step": self.global_step, **payload}) + "\n")
         self._metrics_fp.flush()
 
+    def use_device(self) -> None:
+        """Make this trainer's device the calling thread's current one (the
+        AssemblyPipeline thread calls it before it stages its first batch)."""
+        use_device(self.device)
+
     def _to_device(self, a) -> torch.Tensor:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
         return t.to(self.device)
+
+    def _row_wire(self, rows: np.ndarray):
+        """Embedding rows on the host wire: bfloat16 with ``wire_rows_bf16``
+        (rounded to nearest even by torch, numpy has no bfloat16), else the
+        float32 array as it is."""
+        if not self.cfg.wire_rows_bf16:
+            return rows
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(torch.bfloat16)
+
+    @staticmethod
+    def _host_rows(rows: torch.Tensor) -> np.ndarray:
+        """Rows that came off the device as a float32 numpy array: bfloat16
+        rows (``wire_rows_bf16``) are widened on the host, exactly, so that
+        only the transfer is halved (the masters hold float32)."""
+        return rows.float().numpy()
 
     # -------------------------------------------------------------------- data
     def _cache_stream(self, skip: int = 0, epoch: int = 0) -> Iterator[np.ndarray]:
@@ -506,7 +584,7 @@ class CachedDlrmTrainer:
         :meth:`_complete_staged_acc` at the boundary."""
         ops = (
             self._to_device(pad_to_bucket(plan.insert_slots, self.geo.trash_row)),
-            self._to_device(pad_to_bucket(plan.insert_rows, 0.0)),
+            self._to_device(self._row_wire(pad_to_bucket(plan.insert_rows, 0.0))),
             self._to_device(pad_to_bucket(plan.evict_slots, 0)),
         )
         if self._acc_master is not None and stage_acc:
@@ -547,9 +625,10 @@ class CachedDlrmTrainer:
         step. Returns the evicted rows [E, D], their values before the
         insert, for the caller to write back to the masters (the evicted
         accumulators of ``adagrad_master_state`` are dropped here)."""
+        use_device(self.device)
         t0 = time.perf_counter()
         evicted, _ = self._run_refill(self._refill_device_inputs(plan))
-        out = evicted[: plan.evict_slots.shape[0]].cpu().numpy()
+        out = self._host_rows(evicted[: plan.evict_slots.shape[0]].cpu())
         self.metrics.caching_overhead_s += time.perf_counter() - t0
         self.metrics.refills += 1
         return out
@@ -559,9 +638,10 @@ class CachedDlrmTrainer:
         copy into pinned memory starts now, behind the refill on the stream,
         and the thunk waits on an event recorded after it, so the eviction
         thread, not the train loop, pays for the transfer; the thunk holds
-        ``rows`` until then."""
+        ``rows`` until then. Rows of the bfloat16 row wire cross as bfloat16
+        and are widened to float32 on the host."""
         if self.device.type != "cuda":
-            host = rows.numpy()
+            host = self._host_rows(rows)
             return lambda: host
         host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
         host.copy_(rows, non_blocking=True)
@@ -570,7 +650,7 @@ class CachedDlrmTrainer:
 
         def fetch(host=host, done=done, rows=rows):
             done.synchronize()
-            return host.numpy()
+            return self._host_rows(host)
 
         return fetch
 
@@ -648,7 +728,7 @@ class CachedDlrmTrainer:
         aux_rows = np.zeros((k, self.geo.dim), dtype=np.float32)
         aux_slots[:n] = aux_slots_in
         aux_rows[:n] = aux_rows_in
-        return aux_slots, aux_rows
+        return aux_slots, self._row_wire(aux_rows)
 
     def _dummy_mask(self, t_count: int, b: int) -> torch.Tensor:
         """The all-False mask of single-index batches: one device constant."""
@@ -659,10 +739,14 @@ class CachedDlrmTrainer:
         return mask
 
     def _wire_x(self, x: np.ndarray) -> torch.Tensor:
-        """Dense features on the host wire: bf16 when computing in bf16 (the
-        forward rounds them to bf16 first anyway), else float32."""
+        """Dense features on the host wire: float8_e4m3fn, one byte each,
+        with ``wire_x_fp8`` (the step widens them at entry); else bf16 when
+        computing in bf16 (the forward rounds them to bf16 first anyway),
+        else float32."""
         xt = torch.from_numpy(np.ascontiguousarray(x))
-        if self.cfg.compute_dtype == "bfloat16":
+        if self.cfg.wire_x_fp8:
+            xt = xt.to(torch.float8_e4m3fn)
+        elif self.cfg.compute_dtype == "bfloat16":
             xt = xt.to(torch.bfloat16)
         return xt
 
@@ -916,6 +1000,7 @@ class CachedDlrmTrainer:
         from cdlrm_tpu_torch.train.pipeline import WINDOW_BOUNDARY, WINDOW_REPLAY
 
         cfg = self.cfg
+        use_device(self.device)
         self._start_pipeline()
         pipe = self._pipe
         if self._stream_done:
@@ -958,6 +1043,8 @@ class CachedDlrmTrainer:
                 ),
                 "steps": m.steps,
                 "dedup": self._dedup,  # wire of the current window
+                # multi-host refill prestage hoists so far (one host: none)
+                "mh_prefetches": 0,
             }
             log_fn(
                 f"Step {j}: {ms_it:.2f} ms/it, caching overhead "
@@ -1125,6 +1212,7 @@ class CachedDlrmTrainer:
         into pinned host memory right after its forward, and an event marks
         the copy; the host waits on that event one batch later."""
         cfg = self.cfg
+        use_device(self.device)
         tb = cfg.test_mini_batch_size
         total, correct = 0, 0
         auc = StreamingAUC()
@@ -1136,6 +1224,7 @@ class CachedDlrmTrainer:
 
         def produce():
             try:
+                use_device(self.device)
                 for i, batch in enumerate(self.test_dataset.batches()):
                     if max_batches is not None and i >= max_batches:
                         break
@@ -1195,12 +1284,23 @@ class CachedDlrmTrainer:
         acc = correct / max(1, total)
         auc_v = auc.result()
         log_fn(f"Test accuracy = {100.0 * acc:.4f}%  AUC = {auc_v:.5f}")
+        ptr = self.metrics.per_table_hit_rates
+        if ptr is not None:
+            # a summary on the console; the full [T] vector goes to the
+            # structured log below
+            log_fn(
+                f"Per-table train hit rates: min {float(ptr.min()):.4f} "
+                f"mean {float(ptr.mean()):.4f} max {float(ptr.max()):.4f}"
+            )
         self._log_metrics(
             "eval",
             {
                 "accuracy": acc,
                 "auc": None if np.isnan(auc_v) else float(auc_v),
                 "eval_hit_rate": self.metrics.eval_hit_rate,
+                "per_table_hit_rates": (
+                    None if ptr is None else [round(float(v), 4) for v in ptr]
+                ),
                 "examples": total,
             },
         )
@@ -1230,7 +1330,9 @@ class CachedDlrmTrainer:
         ``checkpoint_async`` (:class:`CheckpointWriter`), so training may go
         on meanwhile. Files: ``meta.pkl`` (format_version, global_step,
         rng_state, cursor), ``dense_params.npz`` and, under AdaGrad,
-        ``dense_acc.npz`` (``leaf_i`` in tree_flatten order), ``cache.npy``,
+        ``dense_acc.npz`` (``leaf_i`` in tree_flatten order: the bottom MLP,
+        the ``md_proj`` projections of cached mixed-dimension tables, the top
+        MLP), ``cache.npy``,
         ``embed_acc.npy``, ``touched.npy`` (all False: one device has no
         pending aggregation, and cdlrm_tpu's loader reads it),
         ``acc_store.npz`` with ``adagrad_master_state``, ``occupancy.npz``
@@ -1238,6 +1340,7 @@ class CachedDlrmTrainer:
         ``checkpoint_masters='full'`` and for masters without dirty tracking
         (virtual masters), written on the train thread."""
         self._ckpt_writer.join()
+        use_device(self.device)
         os.makedirs(path, exist_ok=True)
         if not self.eviction_manager.flush(timeout=self.cfg.eviction_fifo_timeout):
             raise RuntimeError(
@@ -1310,11 +1413,18 @@ class CachedDlrmTrainer:
                 f"incompatible checkpoint format v{fmt} at {path!r} (this build "
                 f"reads v2-v{CHECKPOINT_FORMAT_VERSION})"
             )
+        use_device(self.device)
         n_bot = len(self.params["bot"])
-        n_leaves = 2 * (n_bot + len(self.params["top"]))
+        md = "md_proj" in self.params
+        n_leaves = len(param_leaves(self.params))
         with np.load(os.path.join(path, "dense_params.npz")) as data:
+            if len(data.files) != n_leaves:
+                raise ValueError(
+                    f"{path!r} holds {len(data.files)} dense leaves, this "
+                    f"config's model {n_leaves} (md_flag or MLP depth differs)"
+                )
             leaves = [data[f"leaf_{i}"] for i in range(n_leaves)]
-        self.params = params_from_jax(leaves, n_bot=n_bot, device=self.device)
+        self.params = params_from_jax(leaves, n_bot=n_bot, device=self.device, md_proj=md)
         cache0 = np.load(os.path.join(path, "cache.npy"))
         if cache0.shape != tuple(self.cache.shape):
             raise ValueError(
@@ -1346,7 +1456,8 @@ class CachedDlrmTrainer:
             self.embed_acc = torch.from_numpy(np.load(acc_path)).to(self.device)
             with np.load(os.path.join(path, "dense_acc.npz")) as data:
                 acc_leaves = [data[f"leaf_{i}"] for i in range(n_leaves)]
-            self.dense_acc = params_from_jax(acc_leaves, n_bot=n_bot, device=self.device)
+            self.dense_acc = params_from_jax(acc_leaves, n_bot=n_bot, device=self.device,
+                                             md_proj=md)
             if self._acc_master is not None:
                 with np.load(store_path) as data:
                     self._acc_master.load_payload(data)

@@ -25,14 +25,23 @@ without; full-table training with the tables on the card; cached AdaGrad in
 two runs of 30 steps on the packed dedup wire, the cache cut to 2,048 sets
 so that windows evict, (e) with the master state, whose checkpoint is saved
 asynchronously, loaded bit-equal into a fresh trainer and trained on, and
-(f) without; and full-table AdaGrad, saved and loaded bit-equal. Each run
+(f) without; full-table AdaGrad, saved and loaded bit-equal; and the wire
+and model variants: (g) run (b) on the byte-lean wires (bfloat16 rows,
+float8 dense features), with the bytes each step and window put on the
+host-to-device link beside run (b)'s; (h) cached mixed-dimension tables on a
+ladder of 26 table sizes from 2,500 to 250,000 rows, with an eval pass and
+the padded cache columns read back exactly zero; (i) full-table QR and (j)
+full-table MD on the same ladder, each saved and loaded bit-equal; and a
+short cached training under the profiler, whose trace must name the
+kernels of row_ops.cu. Each run
 resets every kernel's launch count just before it and reads them just after.
 One serving batch, one train step of each cached run, one coalesced block,
 one full-table step and one full-table AdaGrad step are checked against the
 same inputs run through the port on the CPU. Last it runs the port's CLI:
-serving, training, coalesced scan blocks, the full-table trainer, and
-AdaGrad training that saves a checkpoint, then serving from it and training
-resumed from it. Any failed phase raises, and the script exits non-zero
+serving, training, coalesced scan blocks, the full-table trainer, AdaGrad
+training that saves a checkpoint, then serving from it and training resumed
+from it, and the variants (the byte-lean wires under the profiler, cached
+MD, full-table QR and MD). Any failed phase raises, and the script exits non-zero
 without printing a result; with no CUDA device it exits 1 at once. The last
 line of standard output is a JSON object ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit, and the line before
@@ -71,6 +80,16 @@ FT_STEPS, FT_EVAL_BATCHES = 10, 2  # full-table training, then eval
 # refill evicts about 8k rows per table with their state; the loaded
 # trainer of the checkpoint round trip trains AG_RESUME_STEPS more steps
 AG_LR, AG_CACHE_SETS, AG_RESUME_STEPS, FT_AG_STEPS = 0.01, 2_048, 4, 5
+# Mixed-dimension and QR runs (phases 9 and 10): md_solver gives tables of
+# different sizes different widths, so these runs keep every width of the
+# headline model and take 26 tables on a geometric ladder of row counts over
+# two decades, 2,500 to 250,000 rows (1,473,648 rows in all). With
+# md_temperature 0.3 and widths rounded to powers of two the ladder yields
+# 7 tables of width 128, 12 of 64 and 7 of 32. Full-table runs compress the
+# tables above TRICK_THRESHOLD rows (18 of the 26) and keep the 8 smaller
+# ones plain, so that both forms are on the path
+LADDER = np.round(np.geomspace(2_500, ROWS, TABLES)).astype(np.int64)
+TRICK_THRESHOLD, TRICK_STEPS, PROFILE_STEPS = 10_000, 10, 10
 # The AdaGrad step held against the CPU computes in float32.
 # AdaGrad divides each update by the root of its accumulated squares, so a
 # bf16 rounding that differs between card and CPU in a small gradient moves
@@ -227,8 +246,9 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def headline_config(**kw):
-    """The headline model at full width (bench.py:67-70), finalized."""
+def headline_config(ln_emb=None, **kw):
+    """The headline model at full width (bench.py:67-70), finalized; on 26
+    tables of 250,000 rows unless ``ln_emb`` gives other row counts."""
     from cdlrm_tpu_torch.config import Config
 
     base = dict(
@@ -238,7 +258,9 @@ def headline_config(**kw):
         master_init="virtual", numpy_rand_seed=SEED,
     )
     base.update(kw)
-    return Config(**base).finalize(ln_emb=np.full(TABLES, ROWS, dtype=np.int64))
+    if ln_emb is None:
+        ln_emb = np.full(TABLES, ROWS, dtype=np.int64)
+    return Config(**base).finalize(ln_emb=ln_emb)
 
 
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device-memory rate (NVIDIA's data sheet)
@@ -316,7 +338,8 @@ def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
     # other widths (float4 rows, the scalar path), row counts that are no
     # multiple of the 32-row tile or of the 8 rows unrolled, a source that is
     # not 16-byte aligned (the scalar path)
-    for d, count in ((16, 3001), (6, 3001), (DIM, 1), (DIM, 37), (64, 4099)):
+    # 32 and 64: the widths of mixed-dimension tables (phase 10)
+    for d, count in ((16, 3001), (6, 3001), (DIM, 1), (DIM, 37), (64, 4099), (32, BATCH)):
         c = torch.randn((5000, d), generator=g, device=dev)
         s = torch.randint(0, 5000, (count,), generator=g, device=dev, dtype=torch.int32)
         assert torch.equal(gather_rows(c, s), gather_rows_ref(c, s)), f"gather_rows D={d}"
@@ -459,6 +482,9 @@ def check_kernels(card: str, rows: int, dev: torch.device) -> dict:
     del fresh
     for c0, nn, hi, alpha in ((torch.zeros((131_072, DIM), device=dev), n, 60_000, 1.0),
                               (small, 4096, 2000, lr_emb),
+                              # a mixed-dimension table's gradient (phase 10)
+                              (torch.zeros((ROWS, 32), device=dev), BATCH, ROWS, 1.0),
+                              (torch.zeros((20_000, 64), device=dev), BATCH, 20_000, 1.0),
                               (torch.randn((3000, 6), generator=g, device=dev), 2048, 300, 1.0)):
         e, ep = dup_case(c0, nn, hi, alpha)[2:]
         err_dup, err_plain = max(err_dup, e), max(err_plain, ep)
@@ -531,7 +557,7 @@ def serve(card: str, dev: torch.device) -> dict:
         batch = next(iter(test_ds.batches()))
         inputs = tr._stage_eval(tr._probe_eval(batch))
         cache_cpu = tr.cache.cpu()
-        params_cpu = {k: [(w.cpu(), b.cpu()) for w, b in v] for k, v in tr.params.items()}
+        params_cpu = _cpu_copy(tr.params)
         reset_launches()
         _, s_dev = tr.eval_step(tr.params, tr.cache, *inputs)
         print(f"kernel launches of one eval step {read_launches()}")
@@ -554,7 +580,10 @@ def run_cli(dev: torch.device) -> None:
     scan blocks on the unpacked dedup wire (forced on: the random stream is
     near-unique, so 'auto' would take the plain wire), and the full-table
     trainer; then AdaGrad on the dedup wire: a training run that saves a
-    checkpoint, serving from it, and training resumed from it."""
+    checkpoint, serving from it, and training resumed from it; then the
+    variants: the bfloat16 row wire and the float8 dense wire under the
+    profiler (the trace file must be there), cached mixed-dimension tables,
+    and the full-table trainer with QR and with MD tables."""
     common = [
         sys.executable, "-m", "cdlrm_tpu_torch.cli", "--device", dev.type,
         "--data-generation", "random",
@@ -567,6 +596,8 @@ def run_cli(dev: torch.device) -> None:
         ck = os.path.join(tmp, "ck")
         adagrad = ["--optimizer", "adagrad", "--dedup-lookups", "on", "--learning-rate", "0.05",
                    "--lr-embeds", "0.05", "--lookahead", "2", "--print-freq", "5"]
+        trace = os.path.join(tmp, "trace")
+        cached = ["--lookahead", "2", "--print-freq", "5"]
         for extra, want in ((["--inference-only"], "Test accuracy"),
                             (["--lookahead", "2", "--print-freq", "5"], "Step 10:"),
                             (["--scan-steps", "4", "--no-pack-wire", "--dedup-lookups", "on",
@@ -574,7 +605,15 @@ def run_cli(dev: torch.device) -> None:
                             (["--no-use-cache", "--print-freq", "5"], "Epoch 0: 5/"),
                             (adagrad + ["--save-model", ck], "Step 10:"),
                             (adagrad + ["--load-model", ck, "--inference-only"], "Test accuracy"),
-                            (adagrad + ["--load-model", ck, "--num-batches", "20"], "Step 20:")):
+                            (adagrad + ["--load-model", ck, "--num-batches", "20"], "Step 20:"),
+                            (cached + ["--wire-rows-bf16", "--wire-x-fp8", "--dedup-lookups",
+                                       "on", "--enable-profiling", "--profile-dir", trace],
+                             "Step 10:"),
+                            (cached + ["--md-flag", "--master-init", "virtual"], "Step 10:"),
+                            (["--no-use-cache", "--qr-flag", "--qr-threshold", "600",
+                              "--print-freq", "5"], "Epoch 0: 5/"),
+                            (["--no-use-cache", "--md-flag", "--md-threshold", "600",
+                              "--print-freq", "5"], "Epoch 0: 5/")):
             res = subprocess.run(common + extra, cwd=REPO, capture_output=True, text=True,
                                  timeout=300)
             if (res.returncode != 0 or want not in res.stdout
@@ -582,6 +621,8 @@ def run_cli(dev: torch.device) -> None:
                 raise RuntimeError(f"CLI failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
             if "--save-model" in extra:
                 assert os.path.exists(os.path.join(ck, "embed_acc.npy")), "no checkpoint saved"
+            if "--enable-profiling" in extra:
+                assert os.path.getsize(os.path.join(trace, "trace.json")) > 0, "no trace"
             print("cli:", " | ".join(res.stdout.strip().splitlines()[-2:]))
 
 
@@ -638,24 +679,71 @@ def counted_train(tr, on_reset=None) -> dict:
     return out
 
 
-def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def count_link_bytes(tr) -> dict:
+    """Count what ``tr`` puts on the host-device link, from the sizes of the
+    tensors it stages: each batch's step inputs (the all-False mask of
+    single-index batches is a device constant and crosses nothing), each
+    window's refill operands, and the evicted rows and state that leave the
+    device."""
+    seen = {"step_bytes": 0, "steps": 0, "window_bytes": 0, "windows": 0, "evict_bytes": 0}
+    stage, refill_inputs, deferred = tr._stage_batch, tr._refill_device_inputs, tr._deferred_host
+
+    def stage_batch(batch, wire, aux, train):
+        out = stage(batch, wire, aux, train)
+        seen["step_bytes"] += _nbytes(t for i, t in enumerate(out)
+                                      if i != 2 or batch.ls_mask is not None)
+        seen["steps"] += 1
+        return out
+
+    def refill_device_inputs(plan, stage_acc=True):
+        ops = refill_inputs(plan, stage_acc=stage_acc)
+        seen["window_bytes"] += _nbytes(ops)
+        seen["windows"] += 1
+        return ops
+
+    def deferred_host(rows):
+        seen["evict_bytes"] += _nbytes([rows])
+        return deferred(rows)
+
+    tr._stage_batch, tr._refill_device_inputs, tr._deferred_host = (
+        stage_batch, refill_device_inputs, deferred_host)
+    return seen
+
+
+def train_run(card: str, dev: torch.device, dedup_lookups: str, label: str = "",
+              ln_emb=None, check=None, **cfg_kw) -> dict:
     """One training run of the headline model at full width: TRAIN_WARM_STEPS
     steps of set-up, then TRAIN_STEPS counted steps of the main path, with
     every launch count reset just before them. Then one train step on the
-    card against the same inputs through the port on the CPU. Returns the
-    run's numbers and launch counts."""
+    card against the same inputs through the port on the CPU. ``cfg_kw``
+    adds config fields (the wire and model variants), ``ln_emb`` other table
+    sizes, and ``check(tr)`` runs on the trained trainer before it closes.
+    Returns the run's numbers, launch counts and link bytes."""
+    from cdlrm_tpu_torch.models.dlrm import param_leaves
     from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
-    cfg = headline_config(lookahead=LOOKAHEAD, print_freq=1 << 30,
-                          dedup_lookups=dedup_lookups)
+    cfg = headline_config(ln_emb, lookahead=LOOKAHEAD, print_freq=1 << 30,
+                          dedup_lookups=dedup_lookups, **cfg_kw)
     train_ds = uniform_stream(cfg, TRAIN_WARM_STEPS + TRAIN_STEPS + 2, SEED + 2)
-    tr = CachedDlrmTrainer(cfg, train_ds, device=dev)
+    tr = CachedDlrmTrainer(cfg, train_ds, train_ds, device=dev)
+    link = count_link_bytes(tr)
     try:
         run = counted_train(tr)
+        if check is not None:
+            check(tr)
     finally:
         tr.close()
     launches = run["launches"]
-    print(f"[{card}] train dedup_lookups={dedup_lookups}: {run['line']}")
+    per_step = link["step_bytes"] / max(1, link["steps"])
+    per_window = link["window_bytes"] / max(1, link["windows"])
+    print(f"[{card}] train {label}dedup_lookups={dedup_lookups}: {run['line']}; host-to-device "
+          f"bytes staged: {per_step:.0f} a step (mean of {link['steps']} batches), "
+          f"{per_window:.0f} a window (mean of {link['windows']} refills; {LOOKAHEAD} steps a "
+          f"window); device-to-host evicted rows and state {link['evict_bytes']} bytes in all")
 
     # the step alone, on the last trained batch (resident ids; the pipeline
     # threads are stopped): the card against the CPU from the same cache and
@@ -673,8 +761,7 @@ def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
         inputs, _, dedup, _ = tr._assemble(batch, BATCH)
         host_ms.append(1000 * (time.perf_counter() - t0))
     step = tr._get_step(1, dedup)
-    params_cpu = {k: [(w.to("cpu", copy=True), b.to("cpu", copy=True)) for w, b in v]
-                  for k, v in tr.params.items()}
+    params_cpu = _cpu_copy(tr.params)
     cache_cpu = tr.cache.to("cpu", copy=True)
     reset_launches()
     p_dev, c_dev, l_dev, _ = step(tr.params, tr.cache, *inputs, tr._lr, tr._lr_emb)
@@ -684,7 +771,7 @@ def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
     assert bool(torch.isfinite(c_dev).all()), "non-finite cache after the step"
     cache_err = float((c_dev.cpu() - c_cpu).abs().max())
     param_err = max(float((a.cpu() - b).abs().max())
-                    for k in p_dev for pa, pb in zip(p_dev[k], p_cpu[k]) for a, b in zip(pa, pb))
+                    for a, b in zip(param_leaves(p_dev), param_leaves(p_cpu)))
     loss_err = abs(float(l_dev) - float(l_cpu)) / BATCH
     del c_cpu, cache_cpu
     assert max(cache_err, param_err, loss_err) <= SCORE_TOL, (cache_err, param_err, loss_err)
@@ -694,7 +781,8 @@ def train_run(card: str, dev: torch.device, dedup_lookups: str) -> dict:
           f"difference| {loss_err:.3e} (tolerance {SCORE_TOL}); device step {step_ms:.3f} ms "
           f"by events; host probe {statistics.median(probe_ms):.3f} ms, probe + staging "
           f"{statistics.median(host_ms):.3f} ms; kernel launches of the one step {step_launches}")
-    return dict(launches=launches)
+    return dict(launches=launches, examples_s=TRAIN_STEPS * BATCH / run["wall"],
+                step_bytes=per_step, window_bytes=per_window, evict_bytes=link["evict_bytes"])
 
 
 class LogUniformStream:
@@ -705,8 +793,8 @@ class LogUniformStream:
 
     m_den = 13
 
-    def __init__(self, num_batches: int, seed: int):
-        self.ln_emb = np.full(TABLES, ROWS, dtype=np.int64)
+    def __init__(self, num_batches: int, seed: int, ln_emb=None):
+        self.ln_emb = np.full(TABLES, ROWS, dtype=np.int64) if ln_emb is None else ln_emb
         self.num_batches, self.seed = num_batches, seed
 
     def __len__(self):
@@ -719,20 +807,23 @@ class LogUniformStream:
         for _ in range(self.num_batches):
             x = rng.random((BATCH, 13), dtype=np.float32)
             u = rng.random((TABLES, BATCH), dtype=np.float32)
-            idx = np.exp(u * np.log(ROWS)).astype(np.int64) - 1
-            np.minimum(idx, ROWS - 1, out=idx)
+            idx = np.exp(u * np.log(self.ln_emb)[:, None]).astype(np.int64) - 1
+            np.minimum(idx, self.ln_emb[:, None] - 1, out=idx)
             y = np.round(rng.random((BATCH, 1), dtype=np.float32))
             yield Batch(x, idx, None, y)
 
 
 def _cpu_copy(params) -> dict:
-    return {k: [(w.to("cpu", copy=True), b.to("cpu", copy=True)) for w, b in v]
-            for k, v in params.items()}
+    from cdlrm_tpu_torch.models.dlrm import map_params
+
+    return map_params(lambda t: t.to("cpu", copy=True), params)
 
 
 def _max_param_err(p_dev, p_cpu) -> float:
+    from cdlrm_tpu_torch.models.dlrm import param_leaves
+
     return max(float((a.cpu() - b).abs().max())
-               for k in p_dev for pa, pb in zip(p_dev[k], p_cpu[k]) for a, b in zip(pa, pb))
+               for a, b in zip(param_leaves(p_dev), param_leaves(p_cpu)))
 
 
 def _adagrad_errs(triples, step_bound: float) -> tuple:
@@ -943,7 +1034,9 @@ def fulltable(card: str, dev: torch.device) -> dict:
 
 
 def _state_leaves(tree) -> list:
-    return [a for key in ("bot", "top") for pair in tree[key] for a in pair]
+    from cdlrm_tpu_torch.models.dlrm import param_leaves
+
+    return param_leaves(tree)
 
 
 def _equal_leaves(a, b) -> bool:
@@ -1182,6 +1275,202 @@ def fulltable_adagrad(card: str, dev: torch.device) -> dict:
     return dict(launches=launches)
 
 
+def wire_and_md(card: str, dev: torch.device, run_b: dict) -> dict:
+    """Phase 9: the cached wire and model variants at full width. (g): run
+    (b)'s flags and stream with ``wire_rows_bf16`` and ``wire_x_fp8``; the
+    bytes a step and a window stage for the host-to-device link stand beside
+    run (b)'s (``run_b``), counted from the staged tensors' sizes. (h):
+    cached mixed-dimension tables on LADDER, the packed dedup wire, virtual
+    (row-sharded, compact) masters; after the run the padded columns of every
+    cache row must read exactly zero, and an eval pass runs through the
+    projection."""
+    g = train_run(card, dev, "on", label="(g) wire_rows_bf16, wire_x_fp8, ",
+                  wire_rows_bf16=True, wire_x_fp8=True)
+    print(f"[{card}] link bytes, (b) float32 rows and bf16 features -> (g) bf16 rows and fp8 "
+          f"features: a step {run_b['step_bytes']:.0f} -> {g['step_bytes']:.0f} "
+          f"({g['step_bytes'] / run_b['step_bytes']:.3f}), a window "
+          f"{run_b['window_bytes']:.0f} -> {g['window_bytes']:.0f} "
+          f"({g['window_bytes'] / run_b['window_bytes']:.3f}), evicted rows in all "
+          f"{run_b['evict_bytes']} -> {g['evict_bytes']}; examples/s "
+          f"{run_b['examples_s']:.1f} -> {g['examples_s']:.1f} (the host sets the pace: no "
+          f"claim)")
+    assert g["window_bytes"] < 0.6 * run_b["window_bytes"], (g, run_b)
+    assert g["step_bytes"] < run_b["step_bytes"], (g, run_b)
+
+    def check_md(tr):
+        dims = [int(d) for d in tr.cfg.m_spa_per_table]
+        assert sorted(set(dims)) == [32, 64, 128], dims
+        assert [t.shape[1] for t in tr.master.tables] == list(dims), "masters not compact"
+        offs = list(tr.geo.table_offsets) + [tr.geo.trash_row]
+        touched = 0
+        for t, d_t in enumerate(dims):
+            block = tr.cache[int(offs[t]): int(offs[t + 1])]
+            assert not bool(block[:, d_t:].any()), f"table {t}: padded columns moved"
+            touched += int(block[:, :d_t].any(dim=1).sum())
+        proj = tr.params["md_proj"]
+        eye = torch.eye(DIM, device=proj.device)
+        for t, d_t in enumerate(dims):
+            if d_t == DIM:
+                assert torch.equal(proj[t], eye), f"table {t}: identity projection moved"
+            else:
+                assert not bool(proj[t, d_t:].any()), f"table {t}: projection pad rows moved"
+        reset = read_launches()
+        acc, auc = tr.evaluate(max_batches=4, log_fn=lambda *_: None)
+        after = read_launches()
+        assert np.isfinite(acc) and np.isfinite(auc), (acc, auc)
+        assert after["gather_rows"] == reset["gather_rows"] + 4, (reset, after)
+        print(f"[{card}] (h) cached MD: widths {sorted(set(dims))} over {len(dims)} tables "
+              f"({[list(dims).count(d) for d in sorted(set(dims))]} of each), {touched} cache "
+              f"rows hold a row, every padded column reads exactly zero, the full-width "
+              f"tables' identity projections are untouched; eval of 4 batches: accuracy "
+              f"{acc:.6f} AUC {auc:.6f}")
+
+    h = train_run(card, dev, "on", label="(h) cached MD on the ladder, ", ln_emb=LADDER,
+                  check=check_md, md_flag=True, md_round_dims=True)
+    for run in (g, h):
+        launches = run["launches"]
+        assert launches["scatter_add_rows"] >= TRAIN_STEPS, launches
+        assert launches["index_add_rows"] >= TRAIN_STEPS, launches
+        assert launches["gather_rows"] > 0 and launches["scatter_set_rows"] > 0, launches
+    return {"g": g, "h": h}
+
+
+def _entries_to(entries, device, copy: bool = False) -> list:
+    return [e if e is None else e.with_leaves([w.to(device, copy=copy) for w in e.leaves()])
+            for e in entries]
+
+
+def fulltable_tricks(card: str, dev: torch.device, kind: str) -> dict:
+    """Phase 10, run (i) ``kind='qr'`` (operation mult) or (j) ``'md'``: the
+    full-table trainer on LADDER, the tables above TRICK_THRESHOLD rows
+    compressed and the rest plain: TRICK_STEPS steps on the loguniform
+    stream and an eval, every launch count reset just before; one step on
+    the card against the port on the CPU; then a save and a load into a
+    fresh trainer, bit-equal."""
+    from cdlrm_tpu_torch.models.embedding import emb_leaves
+    from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
+
+    flags = (dict(qr_flag=True, qr_operation="mult", qr_threshold=TRICK_THRESHOLD)
+             if kind == "qr" else
+             dict(md_flag=True, md_round_dims=True, md_threshold=TRICK_THRESHOLD))
+    run = "i" if kind == "qr" else "j"
+    cfg = headline_config(LADDER, use_cache=False, print_freq=1 << 30, **flags)
+    ds = LogUniformStream(TRICK_STEPS + 1, seed=SEED + 9, ln_emb=LADDER)
+    test_ds = LogUniformStream(FT_EVAL_BATCHES, seed=SEED + 10, ln_emb=LADDER)
+    tr = FullTableDlrmTrainer(cfg, ds, test_ds, device=dev)
+    n_comp = sum(e is not None for e in tr.emb_entries)
+    assert 0 < n_comp < TABLES, n_comp
+    shapes = sorted({tuple(w.shape[1:]) for e in tr.emb_entries if e is not None
+                     for w in e.leaves()})
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.train(max_steps=TRICK_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc, auc = tr.evaluate(max_batches=FT_EVAL_BATCHES)
+    launches = read_launches()
+    print(f"[{card}] full-table ({run}) {kind.upper()} on the ladder: {n_comp} of {TABLES} "
+          f"tables compressed (tensor widths {shapes}), plain tables "
+          f"{tuple(tr.tables.shape)}; {TRICK_STEPS} steps of {BATCH} in {wall:.3f} s host "
+          f"wall, {TRICK_STEPS * BATCH / wall:.1f} examples/s (first step included); eval of "
+          f"{FT_EVAL_BATCHES} batches: accuracy {acc:.6f} AUC {auc:.6f}; kernel launches "
+          f"{launches}")
+    assert tr.global_step == TRICK_STEPS and np.isfinite(acc) and np.isfinite(auc), (acc, auc)
+    # per step: the plain tables' gather and its expand, and one gather for
+    # each tensor a compressed table reads (QR: two, MD: one); the backward
+    # adds one index_add_rows for each but the plain tables' first
+    per_table = 2 if kind == "qr" else 1
+    assert launches["gather_rows"] == (TRICK_STEPS + FT_EVAL_BATCHES) * (
+        1 + per_table * n_comp) + TRICK_STEPS, launches
+    assert launches["index_add_rows"] == TRICK_STEPS * (1 + per_table * n_comp), launches
+    assert launches["scatter_add_rows"] == TRICK_STEPS, launches
+
+    batch = list(itertools.islice(ds.batches(), TRICK_STEPS + 1))[-1]
+    x, ls_i, mask, tgt = tr._put(batch)
+    params_cpu, tables_cpu = _cpu_copy(tr.params), tr.tables.to("cpu", copy=True)
+    entries_cpu = _entries_to(tr.emb_entries, "cpu", copy=True)
+    p_dev, t_dev, l_dev, _ = tr.train_step(tr.params, tr.tables, tr._offsets, x, ls_i, mask,
+                                           tgt, tr._lr, tr._lr_emb, entries=tr.emb_entries)
+    p_cpu, t_cpu, l_cpu, _ = tr.train_step(params_cpu, tables_cpu, tr._offsets.cpu(), x.cpu(),
+                                           ls_i.cpu(), mask.cpu(), tgt.cpu(), tr._lr,
+                                           tr._lr_emb, entries=entries_cpu)
+    assert bool(torch.isfinite(l_dev)), "non-finite loss"
+    errs = dict(tables=_max_row_err(t_dev, t_cpu), params=_max_param_err(p_dev, p_cpu),
+                loss=abs(float(l_dev) - float(l_cpu)) / BATCH,
+                compressed=max(_max_row_err(a, b) for a, b in zip(
+                    emb_leaves([e for e in tr.emb_entries if e is not None]),
+                    emb_leaves([e for e in entries_cpu if e is not None]))))
+    assert max(errs.values()) <= SCORE_TOL, errs
+    tr.params = p_dev
+    with tempfile.TemporaryDirectory() as ck:
+        tr.save_checkpoint(ck)
+        size = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        ld = FullTableDlrmTrainer(cfg, ds, device=dev)
+        ld.load_checkpoint(ck)
+    equal = {"tables": _equal_rows(ld.tables, tr.tables),
+             "compressed": all(torch.equal(a, b) for a, b in zip(
+                 emb_leaves(ld.emb_tables()), emb_leaves(tr.emb_tables()))),
+             "params": _equal_leaves(ld.params, tr.params),
+             "step": ld.global_step == tr.global_step}
+    assert all(equal.values()), equal
+    print(f"  one full-table {kind.upper()} step vs the CPU run: max |difference| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {SCORE_TOL}); checkpoint {size / 1e9:.3f} GB saved and loaded, "
+          f"tables, compressed tensors and parameters bit-equal")
+    del tr, ld, t_dev
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def profiled_run(card: str, dev: torch.device) -> dict:
+    """Phase 11: PROFILE_STEPS steps of cached training on the packed dedup
+    wire at full width under ``profile_trace``, every launch count reset just
+    before. The trace file must be there, and must name the kernels of
+    csrc/row_ops.cu that the steps launched, from the train thread and from
+    the host threads that stage for it."""
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+    from cdlrm_tpu_torch.utils.profiling import TRACE_FILE, profile_trace
+
+    cfg = headline_config(lookahead=LOOKAHEAD, print_freq=1 << 30, dedup_lookups="on")
+    ds = uniform_stream(cfg, PROFILE_STEPS + 2, SEED + 11)
+    tr = CachedDlrmTrainer(cfg, ds, device=dev)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with profile_trace(trace_dir, dev):
+                tr.train(max_steps=PROFILE_STEPS)
+                torch.cuda.synchronize()
+        finally:
+            tr.close()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        path = os.path.join(trace_dir, TRACE_FILE)
+        size = os.path.getsize(path)
+        assert size > 0, "empty trace"
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = ("gather_rows_unrolled_kernel", "scatter_set_rows_unrolled_kernel",
+             "scatter_add_rows_kernel", "index_add_rows_kernel")
+    kernels = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+    found = {name: sum(name in k for k in kernels) for name in names}
+    # the host threads whose CUDA calls the trace holds: the train thread
+    # launches the kernels, the pipeline and stager threads copy to the device
+    runtime_threads = {ev.get("tid") for ev in events if ev.get("cat") == "cuda_runtime"}
+    copy_threads = {ev.get("tid") for ev in events if ev.get("cat") == "cuda_runtime"
+                    and "Memcpy" in ev.get("name", "")}
+    print(f"[{card}] profiled run: {PROFILE_STEPS} steps under torch.profiler in {wall:.3f} s "
+          f"host wall (trace export included), trace {size / 1e6:.1f} MB, {len(events)} "
+          f"events, {len(kernels)} kernels; CUDA runtime calls from {len(runtime_threads)} "
+          f"host threads, copies from {len(copy_threads)}; kernels of row_ops.cu by name "
+          f"{found}; kernel launches {launches}")
+    assert tr.global_step == PROFILE_STEPS
+    assert found["gather_rows_unrolled_kernel"] > 0, found
+    assert found["scatter_add_rows_kernel"] > 0, found
+    assert launches["gather_rows"] > 0 and launches["scatter_add_rows"] == PROFILE_STEPS, launches
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1218,15 +1507,22 @@ def main() -> int:
     runs.update(adagrad(card, dev))
     torch.cuda.empty_cache()
     full_ag = fulltable_adagrad(card, dev)
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cdlrm_tpu")]
+    runs.update(wire_and_md(card, dev, runs["b"]))
+    torch.cuda.empty_cache()
+    runs["i"] = fulltable_tricks(card, dev, "qr")
+    runs["j"] = fulltable_tricks(card, dev, "md")
+    runs["profiled"] = profiled_run(card, dev)
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu")]
     assert not loaded, f"the port imported {loaded}"
 
     sources = {"gather_rows": "cdlrm_tpu/ops/lookup.py:70",
                "scatter_set_rows": "cdlrm_tpu/ops/scatter.py:257",
                "scatter_add_rows": "cdlrm_tpu/ops/scatter.py:211",
                "index_add_rows": "cdlrm_tpu/ops/lookup.py:99"}
-    # launches: the sum over the main-path runs (serving, training a to f,
-    # full-table training with SGD and AdaGrad), each counted from 0
+    # launches: the sum over the main-path runs (serving, training a to h,
+    # full-table training with SGD, AdaGrad, QR and MD, the profiled run),
+    # each counted from 0
     launches = {name: served[name] + full["launches"][name] + full_ag["launches"][name]
                 + sum(run["launches"][name] for run in runs.values())
                 for name in KERNELS}

@@ -178,9 +178,7 @@ def test_cached_equals_fulltable_when_fully_resident(kw):
 
 @pytest.mark.parametrize("kw,name", [
     (dict(world_size=2), "world_size"),
-    (dict(qr_flag=True), "qr_flag"),
-    (dict(md_flag=True), "md_flag"),
-    (dict(enable_profiling=True), "enable_profiling"),
+    (dict(coordinator_address="localhost:1234"), "coordinator_address"),
 ])
 def test_fulltable_refuses_unported_fields(kw, name):
     ds = _ds(3, 1)

@@ -21,6 +21,7 @@ from cdlrm_tpu.data import criteo as jcriteo
 from cdlrm_tpu.data import preprocess as jpreprocess
 from cdlrm_tpu.data import synthetic as jsynthetic
 from cdlrm_tpu.ops import native as jnative
+from cdlrm_tpu.parallel import multihost as jmultihost
 from cdlrm_tpu.utils import metrics as jmetrics
 from cdlrm_tpu.utils import padding as jpadding
 from cdlrm_tpu.utils import primes as jprimes
@@ -32,6 +33,7 @@ from cdlrm_tpu_torch.data import criteo as pcriteo
 from cdlrm_tpu_torch.data import preprocess as ppreprocess
 from cdlrm_tpu_torch.data import synthetic as psynthetic
 from cdlrm_tpu_torch.ops import native as pnative
+from cdlrm_tpu_torch.parallel import multihost as pmultihost
 from cdlrm_tpu_torch.utils import metrics as pmetrics
 from cdlrm_tpu_torch.utils import padding as ppadding
 from cdlrm_tpu_torch.utils import primes as pprimes
@@ -87,6 +89,10 @@ CONFIGS = [
     ("test_torch_adagrad", "_traj_cfg", {"scan_steps": 3, "pack_wire": False}),
     ("test_torch_adagrad", "_cycle_cfg", {"master": True}),
     ("test_torch_checkpoint", "_fulltable_cfg", {"opt": "adagrad", "checkpoint_freq": 4}),
+    ("test_torch_wires", "_cfg", {"wire_x_fp8": True, "wire_rows_bf16": True}),
+    ("test_torch_md_cached", "_cfg", {"ln_emb": [500, 200, 1000], "master_init": "virtual"}),
+    ("test_torch_tricks", "_cfg", {"qr_flag": True, "qr_threshold": 300}),
+    ("test_torch_tricks", "_cfg", {"pooled": 3, "md_flag": True, "md_threshold": 300}),
 ]
 
 
@@ -487,6 +493,83 @@ def test_virtual_master_tables_equal(tmp_path):
     p2.load(jp)
     same(p2.gather_all(ids), jm.gather_all(ids), "loaded")
     same(j2.gather_all(ids), pm.gather_all(ids), "loaded")
+
+
+@pytest.mark.parametrize("hosts,host", [(1, 0), (3, 0), (3, 2)])
+def test_row_shard_equal(hosts, host):
+    js, ps = jmultihost.RowShard(host, hosts), pmultihost.RowShard(host, hosts)
+    rng = np.random.default_rng(3)
+    for n in (1, 40, 301, 1200):
+        assert ps.owned_range(n) == js.owned_range(n)
+        ids = np.sort(rng.integers(0, n, 50))
+        same(ps.owner_of(ids, n), js.owner_of(ids, n), "owner_of")
+        same(ps.bounds(ids, n), js.bounds(ids, n), "bounds")
+
+
+@pytest.mark.parametrize("native_on", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("hosts,host,dims", [
+    (1, 0, None), (1, 0, [4, 16, 8, 16]), (2, 1, [4, 16, 8, 16]),
+], ids=["whole", "whole-md", "second-of-two-md"])
+def test_sharded_master_tables_equal(tmp_path, monkeypatch, hosts, host, dims, native_on):
+    """The two numpy classes the port copies from cdlrm_tpu's
+    parallel/multihost.py: gathers (sorted, and any order over one whole
+    shard, as the probe calls it), writeback (overwrite and average; the
+    padded columns cut), ``save``, ``save_dirty`` and ``load`` across
+    packages, and the shard-identity check."""
+    if not native_on:
+        monkeypatch.setenv("CDLRM_NO_NATIVE", "1")
+        for mod in (jnative, pnative):
+            monkeypatch.setattr(mod, "available", lambda: False)
+
+    def build(mod, seed=4):
+        return mod.ShardedMasterTables(LN_EMB, DIM, mod.RowShard(host, hosts),
+                                       np.random.default_rng(seed), dims=dims)
+
+    jm, pm = build(jmultihost), build(pmultihost)
+    same(pm.tables, jm.tables, "tables")
+    same(pm.ranges, jm.ranges, "ranges")
+    if dims is not None:
+        assert [t.shape[1] for t in pm.tables] == dims
+    rng = np.random.default_rng(9)
+    ids = [np.unique(rng.integers(0, n, 60)) for n in LN_EMB]
+    for t in range(len(LN_EMB)):
+        got, want = pm.gather(t, ids[t]), jm.gather(t, ids[t])
+        same(got, want, "gather")
+        assert got.shape[1] == DIM
+        same(pm.owned_mask(t, ids[t]), jm.owned_mask(t, ids[t]), "owned_mask")
+        same(pm.gather_owned_of(t, ids[t][::-1]), jm.gather_owned_of(t, ids[t][::-1]),
+             "gather_owned_of")
+        if hosts == 1:
+            shuffled = rng.permutation(ids[t])
+            same(pm.gather(t, shuffled), jm.gather(t, shuffled), "unsorted gather")
+    for average in (False, True):
+        for t in range(len(LN_EMB)):
+            sel = ids[t][:: 2 + average]
+            rows = rng.normal(size=(sel.size, DIM)).astype(np.float32)
+            assert pm.writeback(t, sel, rows, average) == jm.writeback(t, sel, rows.copy(), average)
+    assert pm.writeback(0, np.zeros(0, np.int64), np.zeros((0, DIM), np.float32)) == 0
+    same(pm.tables, jm.tables, "tables after writeback")
+    for kind in ("save", "save_dirty"):
+        jp, pp = str(tmp_path / f"j_{kind}.npz"), str(tmp_path / f"p_{kind}.npz")
+        getattr(jm, kind)(jp)
+        getattr(pm, kind)(pp)
+        same(_npz(pp), _npz(jp), kind)
+        j2, p2 = build(jmultihost), build(pmultihost)
+        j2.load(pp)
+        p2.load(jp)
+        same(p2.tables, jm.tables, f"{kind} loaded")
+        same(j2.tables, pm.tables, f"{kind} loaded")
+    with pytest.raises(ValueError, match="init token"):
+        build(pmultihost).load(str(tmp_path / "j_save_dirty.npz"), init_token=5)
+    other = pmultihost.ShardedMasterTables(
+        LN_EMB, DIM, pmultihost.RowShard(0, hosts + 1), np.random.default_rng(4), dims=dims)
+    with pytest.raises(ValueError, match="hosts"):
+        other.load(str(tmp_path / "j_save.npz"))
+
+
+def test_sharded_master_tables_refuse_wide_dims():
+    with pytest.raises(ValueError, match="exceed base dim"):
+        pmultihost.ShardedMasterTables([10], 8, pmultihost.RowShard(0, 1), dims=[16])
 
 
 def test_accumulator_store_equal(tmp_path):

@@ -21,12 +21,14 @@ from cdlrm_tpu.config import Config as JaxConfig
 from cdlrm_tpu_torch.config import Config, finalize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "cdlrm_tpu")
-# any import of jax or of cdlrm_tpu (or of a module of either) raises ImportError
-_BLOCK_JAX = "import sys; sys.modules['jax'] = None; sys.modules['cdlrm_tpu'] = None\n"
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu")
+# any import of jax, ml_dtypes or cdlrm_tpu (or of a module of them) raises
+# ImportError
+_BLOCK_JAX = ("import sys; sys.modules['jax'] = None; sys.modules['cdlrm_tpu'] = None; "
+              "sys.modules['ml_dtypes'] = None\n")
 _JAX_LOADED = (
     "loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and "
-    "m.split('.')[0] in ('jax', 'jaxlib', 'cdlrm_tpu'))\n"
+    "m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'cdlrm_tpu'))\n"
     "assert not loaded, loaded\n"
 )
 _SERVE = _BLOCK_JAX + """
@@ -182,6 +184,33 @@ def test_cli_trains_fulltable_without_jax():
     assert "Epoch 0: 4/8" in res.stdout and "Test accuracy" in res.stdout
 
 
+@pytest.mark.parametrize("extra,want", [
+    (("--wire-rows-bf16", "--wire-x-fp8", "--dedup-lookups", "on", "--lookahead", "2",
+      "--print-freq", "4"), "Step 8:"),
+    (("--md-flag", "--master-init", "virtual", "--lookahead", "2", "--print-freq", "4"),
+     "Step 8:"),
+    (("--no-use-cache", "--qr-flag", "--qr-threshold", "600", "--print-freq", "4"),
+     "Epoch 0: 4/8"),
+    (("--no-use-cache", "--md-flag", "--md-threshold", "600", "--print-freq", "4"),
+     "Epoch 0: 4/8"),
+], ids=["byte-lean-wires", "cached-md-virtual", "fulltable-qr", "fulltable-md"])
+def test_cli_trains_the_variants_without_jax(extra, want):
+    """The fp8 and bf16 wires round with torch, never ml_dtypes; cached MD on
+    virtual masters takes the port's own row-sharded master class."""
+    res = _run(_CLI, *_SMALL, *extra)
+    assert res.returncode == 0, res.stderr
+    assert want in res.stdout and "Test accuracy" in res.stdout
+
+
+def test_cli_profiles_without_jax(tmp_path):
+    trace_dir = str(tmp_path / "trace")
+    res = _run(_CLI, *_SMALL, "--lookahead", "2", "--print-freq", "4", "--enable-profiling",
+               "--profile-dir", trace_dir)
+    assert res.returncode == 0, res.stderr
+    assert "Step 8:" in res.stdout
+    assert os.path.getsize(os.path.join(trace_dir, "trace.json")) > 0
+
+
 def test_cli_refuses_training():
     """The CLI trains now; what it refuses is training with a field the port
     does not implement, before any data is read."""
@@ -253,6 +282,9 @@ def _port_sources():
 def test_port_sources_import_neither_jax_nor_cdlrm_tpu():
     sources = list(_port_sources())
     assert len(sources) > 25, sources  # the walk found the package
+    walked = {os.path.relpath(p, os.path.join(REPO, "cdlrm_tpu_torch")) for p in sources}
+    assert {os.path.join("parallel", "multihost.py"), os.path.join("utils", "profiling.py"),
+            os.path.join("models", "tricks.py")} <= walked
     bad = {os.path.relpath(p, REPO): hits for p in sources if (hits := _forbidden_imports(p))}
     assert not bad, bad
 

@@ -119,11 +119,16 @@ def test_port_refill_then_serve_hits():
 
 def test_unported_flags_are_refused():
     ds = _ds(5, 1)
-    for kw in (dict(md_flag=True), dict(wire_x_fp8=True), dict(wire_rows_bf16=True),
-               dict(qr_flag=True), dict(coordinator_address="localhost:1234"),
-               dict(world_size=2)):
+    for kw in (dict(coordinator_address="localhost:1234"), dict(world_size=2)):
         with pytest.raises(ValueError, match="does not implement"):
             CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
+    # QR tables with the cache raise cdlrm_tpu's own error (trainer.py:285-294)
+    with pytest.raises(ValueError, match="qr_flag with the cached path"):
+        CachedDlrmTrainer(_cfg(True, qr_flag=True), ds, ds, device="cpu")
+    # the wire and model variants are ported: these build
+    for kw in (dict(md_flag=True), dict(wire_x_fp8=True), dict(wire_rows_bf16=True),
+               dict(enable_profiling=True)):
+        CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu").close()
     # training is ported: at the defaults the trainer builds and trains
     tr = CachedDlrmTrainer(_cfg(True), ds, ds, device="cpu")
     try:
@@ -134,19 +139,18 @@ def test_unported_flags_are_refused():
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(qr_flag=True), "qr_flag"),
     (dict(hot_tier_rows=64), "hot_tier_rows"),
     (dict(sorted_dedup_wire=True, pack_wire=False, dedup_lookups="on"), "sorted_dedup_wire"),
     (dict(world_size=2), "world_size"),
-    (dict(enable_profiling=True), "enable_profiling"),
-    (dict(md_flag=True), "md_flag"),
+    (dict(coordinator_address="localhost:1234"), "coordinator_address"),
 ])
 def test_unimplemented_training_fields_are_refused(kw, name):
     """Fields that train() would otherwise ignore are refused at
     construction; serving with all of them at their defaults is pinned by
     the tests above. Scan blocks, the unpacked dedup wire, use_cache=False
-    (routed to the full-table trainer by the CLI), AdaGrad and checkpoint
-    saves are ported."""
+    (routed to the full-table trainer by the CLI), AdaGrad, checkpoint
+    saves, the bf16 row wire, the fp8 dense wire, cached mixed-dimension
+    tables and profiling are ported."""
     ds = _ds(5, 1)
     with pytest.raises(ValueError, match="does not implement .*" + name):
         CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
