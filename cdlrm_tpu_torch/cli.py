@@ -1,9 +1,16 @@
-"""Training and serving CLI, the counterpart of cdlrm_tpu/cli.py on one
-device: train on the stream (unless ``--inference-only``), then evaluate the
+"""Training and serving CLI, the counterpart of cdlrm_tpu/cli.py: train on
+the stream (unless ``--inference-only``), then evaluate the
 test stream and save a checkpoint with ``--save-model`` (unless
 ``--inference-only``), optionally starting from a checkpoint of either
 package (``--load-model``). The cached trainer runs by default, the
 full-table trainer with ``--no-use-cache``.
+
+``--world-size N`` with N > 1 runs N processes, one per device
+(parallel/mesh.py): started here with no rank in the environment, the CLI
+spawns them itself (rank r on ``cuda:r``, or all on the CPU under ``--device
+cpu``) and exits non-zero if any of them fails; started by a launcher that
+sets ``RANK`` and ``WORLD_SIZE`` (and ``MASTER_ADDR``/``MASTER_PORT``), it
+joins as that rank.
 
 Example (tiny, CPU-runnable):
   python -m cdlrm_tpu_torch.cli --device cpu --data-generation random \
@@ -20,7 +27,11 @@ refuses the ones the port does not implement yet (ROADMAP.md queue 1).
 from __future__ import annotations
 
 import argparse
+import importlib
+import os
+import shutil
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -73,6 +84,54 @@ def build_dataset(cfg: Config):
     raise ValueError(f"unsupported --data-generation {cfg.data_generation}")
 
 
+def _run(cfg: Config, device: torch.device, group=None) -> int:
+    """Build the datasets and the trainer and run them; one process's work."""
+    np.set_printoptions(precision=cfg.print_precision)
+    train_ds, test_ds, cfg = build_dataset(cfg)
+    if cfg.use_cache:
+        from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+        trainer = CachedDlrmTrainer(cfg, train_ds, test_ds, device=device, group=group)
+    else:
+        from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
+
+        trainer = FullTableDlrmTrainer(cfg, train_ds, test_ds, device=device, group=group)
+    from cdlrm_tpu_torch.utils.profiling import profile_trace
+
+    try:
+        if cfg.load_model:
+            trainer.load_checkpoint(cfg.load_model)
+        # --enable-profiling: a torch.profiler trace of the training steps,
+        # written to --profile-dir (utils/profiling.py), by rank 0 alone
+        profiled = cfg.enable_profiling and (group is None or group.rank == 0)
+        with profile_trace(cfg.profile_dir if profiled else None, device):
+            if not cfg.inference_only:
+                trainer.train(max_steps=cfg.num_batches if cfg.num_batches > 0 else None)
+        if test_ds is not None:
+            trainer.evaluate()
+        if cfg.save_model and not cfg.inference_only:
+            trainer.save_checkpoint(cfg.save_model)
+    finally:
+        trainer.close()
+    return 0
+
+
+def _run_rank(rank: int, world_size: int, argv, device_type: str, init_method: str) -> None:
+    """One rank of a data-parallel run: join the group, train on this
+    rank's device (``cuda:rank``, or the CPU), leave the group. An
+    exception ends the process with a non-zero code, which ends the run."""
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    group = make_dp_mesh(world_size, rank, init_method=init_method, device=device)
+    try:
+        _run(config_from_args(argv), device, group)
+    finally:
+        destroy_dp_mesh(group)
+
+
 def main(argv=None) -> int:
     dev_parser = argparse.ArgumentParser(add_help=False)
     dev_parser.add_argument(
@@ -83,34 +142,37 @@ def main(argv=None) -> int:
     cfg = config_from_args(rest)
     if ns.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (use --device cpu)")
-    np.set_printoptions(precision=cfg.print_precision)
-    train_ds, test_ds, cfg = build_dataset(cfg)
+    world = cfg.world_size
+    if world <= 1:
+        return _run(cfg, torch.device(ns.device))
+    if ns.device == "cuda" and torch.cuda.device_count() < world:
+        raise RuntimeError(
+            f"--device cuda --world-size {world}: one CUDA device per rank is "
+            f"needed, {torch.cuda.device_count()} available"
+        )
+    if "RANK" in os.environ:
+        # started by a launcher, one process per rank
+        if int(os.environ.get("WORLD_SIZE", world)) != world:
+            raise ValueError(
+                f"WORLD_SIZE={os.environ['WORLD_SIZE']} in the environment, "
+                f"--world-size {world}"
+            )
+        _run_rank(int(os.environ["RANK"]), world, rest, ns.device, "env://")
+        return 0
+    import torch.multiprocessing as mp
 
-    device = torch.device(ns.device)
-    if cfg.use_cache:
-        from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
-
-        trainer = CachedDlrmTrainer(cfg, train_ds, test_ds, device=device)
-    else:
-        from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
-
-        trainer = FullTableDlrmTrainer(cfg, train_ds, test_ds, device=device)
-    from cdlrm_tpu_torch.utils.profiling import profile_trace
-
+    # the ranks meet through a file in a directory of their own, never a
+    # fixed port. The worker is taken from the imported module, not from
+    # __main__, so that the spawned interpreters can find it by name
+    worker = importlib.import_module("cdlrm_tpu_torch.cli")._run_rank
+    rdzv = tempfile.mkdtemp(prefix="cdlrm_dp_")
     try:
-        if cfg.load_model:
-            trainer.load_checkpoint(cfg.load_model)
-        # --enable-profiling: a torch.profiler trace of the training steps,
-        # written to --profile-dir (utils/profiling.py)
-        with profile_trace(cfg.profile_dir if cfg.enable_profiling else None, device):
-            if not cfg.inference_only:
-                trainer.train(max_steps=cfg.num_batches if cfg.num_batches > 0 else None)
-        if test_ds is not None:
-            trainer.evaluate()
-        if cfg.save_model and not cfg.inference_only:
-            trainer.save_checkpoint(cfg.save_model)
+        # spawn (never fork: CUDA and the host threads do not survive it);
+        # a rank that fails ends the others and raises here
+        mp.spawn(worker, args=(world, rest, ns.device, "file://" + os.path.join(rdzv, "rdzv")),
+                 nprocs=world, join=True)
     finally:
-        trainer.close()
+        shutil.rmtree(rdzv, ignore_errors=True)
     return 0
 
 

@@ -1,6 +1,7 @@
-"""Full-table DLRM trainer on one device, the counterpart of
+"""Full-table DLRM trainer, the counterpart of
 cdlrm_tpu/train/fulltable.py::FullTableDlrmTrainer (``use_cache=False``,
-``python -m cdlrm_tpu_torch.cli --no-use-cache``).
+``python -m cdlrm_tpu_torch.cli --no-use-cache``), on one device or as one
+rank of a data-parallel run.
 
 Every embedding table lives on the device, with no cache, prefetcher or
 masters: the small-config path, and the oracle that pins the cached
@@ -19,8 +20,13 @@ accumulator per table row), ``evaluate``, ``save_checkpoint`` and
 ``fulltable_acc.npz``, ``meta.pkl``), ``close``. Beyond cdlrm_tpu, whose
 full-table trainer ignores them, ``checkpoint_freq`` saves every so many
 steps and ``checkpoint_async`` writes on a background thread, as in the
-cached trainer. Refused at construction (``_check_fulltable``): multi-device
-and multi-host runs (ROADMAP.md queue 1).
+cached trainer. With ``world_size`` > 1 every rank holds the whole model and
+the tables, feeds its slice of each batch, and applies the mean over the
+ranks of the dense and the embedding gradients (fully synchronous data
+parallelism, one collective a step); eval scores each rank's slice and
+brings the scores together; rank 0 prints and writes the checkpoint.
+Refused at construction (``_check_fulltable``): multi-host runs (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -38,16 +44,16 @@ from cdlrm_tpu_torch.data.synthetic import Batch
 from cdlrm_tpu_torch.utils.metrics import StreamingAUC, accuracy_count
 from cdlrm_tpu_torch.models.dlrm import init_dlrm, map_params, params_from_jax, params_to_jax
 from cdlrm_tpu_torch.models.embedding import emb_leaves, init_embedding_tables
+from cdlrm_tpu_torch.parallel.mesh import DpGroup, local_batch_rows, make_dp_mesh
 from cdlrm_tpu_torch.train import step as step_lib
 from cdlrm_tpu_torch.train.trainer import (
-    CheckpointWriter, _pad_batch, _write_npz, _write_pickle, use_device,
+    CheckpointWriter, _no_log, _pad_batch, _write_npz, _write_pickle, use_device,
 )
 
 
 def _check_fulltable(cfg: Config) -> None:
     """Refuse the config fields this trainer does not implement yet."""
     unsupported = {
-        "world_size > 1 (multi-GPU)": cfg.world_size > 1,
         "coordinator_address (multi-host)": bool(cfg.coordinator_address),
     }
     bad = [name for name, on in unsupported.items() if on]
@@ -59,14 +65,24 @@ def _check_fulltable(cfg: Config) -> None:
 
 
 class FullTableDlrmTrainer:
-    """DLRM with the full tables on one device: training and serving."""
+    """DLRM with the full tables on one device, or one rank of a
+    data-parallel run: training and serving."""
 
-    def __init__(self, cfg: Config, dataset, test_dataset=None, *, device):
+    def __init__(self, cfg: Config, dataset, test_dataset=None, *, device,
+                 group: Optional[DpGroup] = None):
         if cfg.ln_emb is None:
             raise ValueError(
                 "call cdlrm_tpu_torch.config.finalize(cfg) (or build_dataset) first"
             )
         _check_fulltable(cfg)
+        # this rank's DpGroup; by default the joined process group, and none
+        # on one replica (parallel/mesh.py::make_dp_mesh)
+        self.group = group if group is not None else make_dp_mesh(cfg.world_size)
+        self.ndev = self.group.world_size
+        if self.ndev != cfg.world_size:
+            raise ValueError(
+                f"the group has {self.ndev} ranks, config world_size={cfg.world_size}"
+            )
         self.cfg = cfg
         self.dataset = dataset
         self.test_dataset = test_dataset
@@ -106,13 +122,16 @@ class FullTableDlrmTrainer:
             loss_function=cfg.loss_function,
             loss_weights=tuple(cfg.loss_weights_list),
             loss_threshold=cfg.loss_threshold,
+            # strict_bias_divergence stays off: cdlrm_tpu's full-table step
+            # averages every gradient, the biases' too (step.py:1452)
             compute_dtype=cfg.compute_dtype,
             optimizer=cfg.optimizer,
             adagrad_eps=cfg.adagrad_eps,
         )
         self.step_cfg = scfg
         self._pooled = cfg.num_indices_per_lookup > 1 or not cfg.num_indices_per_lookup_fixed
-        self.train_step = step_lib.make_fulltable_train_step(scfg, pooled=self._pooled)
+        self.train_step = step_lib.make_fulltable_train_step(
+            scfg, pooled=self._pooled, group=self.group)
         self.eval_step = step_lib.make_fulltable_eval_step(scfg, pooled=self._pooled)
         # float32 learning rates, as cdlrm_tpu holds them (jnp.float32)
         self._lr = float(np.float32(cfg.learning_rate))
@@ -131,15 +150,24 @@ class FullTableDlrmTrainer:
         return [next(views) if e is None else e for e in self.emb_entries]
 
     def _put(self, batch: Batch):
-        """x, ls_i, the mask (all False for single-index batches) and the
-        targets on the device (cdlrm_tpu ``_put``)."""
+        """This rank's slice of x, ls_i, the mask (all False for
+        single-index batches) and the targets on the device (cdlrm_tpu
+        ``_put``)."""
         mask = batch.ls_mask
         if mask is None:
             mask = np.zeros(batch.ls_i.shape, dtype=bool)
         return tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            for a in (batch.x, batch.ls_i, mask, batch.y)
+            self._to_device(local_batch_rows(a, self.group, axis))
+            for a, axis in ((batch.x, 0), (batch.ls_i, 1), (mask, 1), (batch.y, 0))
         )
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _global_ids(self, batch: Batch) -> dict:
+        """The train step's ``global_ids`` keyword: the whole batch's ids,
+        with more than one rank."""
+        return {"global_ids": self._to_device(batch.ls_i)} if self.ndev > 1 else {}
 
     def train(self, max_steps: Optional[int] = None, log_fn=print) -> None:
         """Train over the stream, epoch by epoch (cdlrm_tpu
@@ -149,6 +177,8 @@ class FullTableDlrmTrainer:
         stay on the device until the next log."""
         cfg = self.cfg
         use_device(self.device)
+        if self.group.rank != 0:
+            log_fn = _no_log  # rank 0 alone prints
         b = cfg.mini_batch_size
         pending: List[torch.Tensor] = []  # (loss_sum, correct) device scalars
         loss_carry = corr_carry = n_carry = 0.0
@@ -170,14 +200,15 @@ class FullTableDlrmTrainer:
                 if max_steps is not None and self.global_step >= max_steps:
                     return
                 x, ls_i, mask, tgt = self._put(batch)
+                ids_kw = self._global_ids(batch)
                 inputs = (self.params, self.tables, self._offsets, x, ls_i, mask, tgt)
                 if self._adagrad:
                     (self.params, self.tables, self.dense_acc, self.emb_acc, loss_sum,
                      correct) = self.train_step(*inputs, self.dense_acc, self.emb_acc,
-                                                self._lr, self._lr_emb)
+                                                self._lr, self._lr_emb, **ids_kw)
                 else:
                     self.params, self.tables, loss_sum, correct = self.train_step(
-                        *inputs, self._lr, self._lr_emb, **self._entries_kw
+                        *inputs, self._lr, self._lr_emb, **self._entries_kw, **ids_kw
                     )
                 self.global_step += 1
                 if (cfg.checkpoint_freq > 0 and cfg.save_model
@@ -206,11 +237,16 @@ class FullTableDlrmTrainer:
 
     def evaluate(self, max_batches: Optional[int] = None, log_fn=print):
         """Eval over the test stream; returns (accuracy, auc). A short last
-        batch is padded to the eval batch size and its padding dropped."""
+        batch is padded to the eval batch size (with more than one rank, to
+        ``world_size * ceil(tb / world_size)``: each rank scores its slice
+        and the scores come together in rank order) and its padding
+        dropped."""
         use_device(self.device)
+        if self.group.rank != 0:
+            log_fn = _no_log
         total, correct = 0, 0
         auc = StreamingAUC()
-        tb = self.cfg.test_mini_batch_size
+        tb = -(-self.cfg.test_mini_batch_size // self.ndev) * self.ndev
         for i, batch in enumerate(self.test_dataset.batches()):
             if max_batches is not None and i >= max_batches:
                 break
@@ -219,7 +255,7 @@ class FullTableDlrmTrainer:
             x, ls_i, mask, _ = self._put(batch)
             scores = self.eval_step(self.params, self.tables, self._offsets, x, ls_i, mask,
                                     **self._entries_kw)
-            scores = scores.cpu().numpy()[:n]
+            scores = self.group.gather_batch_rows(scores).cpu().numpy()[:n]
             correct += accuracy_count(scores, batch.y[:n])
             total += n
             auc.update(scores, batch.y[:n])
@@ -238,8 +274,15 @@ class FullTableDlrmTrainer:
         arrays), and ``meta.pkl``
         with the global step. The state is copied to the host here; the
         files are written by a :class:`CheckpointWriter`, on a background
-        thread with ``checkpoint_async``."""
+        thread with ``checkpoint_async``. With more than one rank the
+        replicas are equal (every gradient is averaged), so rank 0 alone
+        writes, and after a synchronous write a barrier holds the others
+        until the files are there."""
         self._ckpt_writer.join()
+        if self.group.rank != 0:
+            if not self.cfg.checkpoint_async:
+                self.group.barrier()
+            return
         os.makedirs(path, exist_ok=True)
 
         def leaves(params, emb) -> dict:
@@ -254,6 +297,8 @@ class FullTableDlrmTrainer:
         writes.append((_write_pickle, os.path.join(path, "meta.pkl"),
                        {"global_step": self.global_step}))
         self._ckpt_writer.run(writes, background=self.cfg.checkpoint_async)
+        if not self.cfg.checkpoint_async:
+            self.group.barrier()
 
     def load_checkpoint(self, path: str) -> None:
         """Load a full-table checkpoint of either package (the files of

@@ -1,15 +1,21 @@
-"""Device steps on one device, the counterpart of cdlrm_tpu/train/step.py:
-the cached train step (the plain wire and the packed and unpacked dedup
-wires; SGD, and AdaGrad on the dedup wires), scan blocks of it with the
-block-coalesced update, the cached eval step, the refill step, the
-full-table train and eval steps, and the wires they read.
+"""Device steps, the counterpart of cdlrm_tpu/train/step.py: the cached
+train step (the plain wire and the packed and unpacked dedup wires; SGD, and
+AdaGrad on the dedup wires), scan blocks of it with the block-coalesced
+update, the cached eval step, the refill step, the touched-row aggregate
+step, the full-table train and eval steps, and the wires they read.
 
-Each step is a plain function over tensors on one device. PyTorch runs
-eagerly, so there is no jit and no ``lax.scan``: a scan block is a loop of
-single steps (with the block-coalesced update, one flush after it), and the
-cache is updated in place where cdlrm_tpu donates it. On a CUDA device the
-row moves run the hand-written kernels (ops/lookup.py, ops/scatter.py); on
-the CPU their plain versions.
+Each step is a plain function over one rank's tensors on its device. PyTorch
+runs eagerly, so there is no jit and no ``lax.scan``: a scan block is a loop
+of single steps (with the block-coalesced update, one flush after it), and
+the cache is updated in place where cdlrm_tpu donates it. On a CUDA device
+the row moves run the hand-written kernels (ops/lookup.py, ops/scatter.py);
+on the CPU their plain versions.
+
+Data parallelism is one process per device (parallel/mesh.py): a step built
+with a :class:`DpGroup` of more than one rank runs on the rank's batch slice
+and its own cache replica, and where cdlrm_tpu's ``shard_map`` body calls
+``psum``/``pmax``/``pmean`` it calls the group's collectives, in the same
+order on every rank. Without a group (one replica) no collective exists.
 
 cdlrm_tpu's ``use_pallas_lookup``, ``use_pallas_scatter`` and
 ``pallas_interpret`` choose between XLA ops and Pallas kernels on the TPU;
@@ -34,19 +40,30 @@ from cdlrm_tpu_torch.models.embedding import pool as _pool
 from cdlrm_tpu_torch.models.mlp import cast_matmul
 from cdlrm_tpu_torch.ops.lookup import gather_rows, index_add_rows
 from cdlrm_tpu_torch.ops.scatter import scatter_add_rows, scatter_set_rows
+from cdlrm_tpu_torch.parallel.mesh import DpGroup
 
 
 class StepConfig(NamedTuple):
-    """The cdlrm_tpu StepConfig fields that the one-device cached path reads,
-    under the same names."""
+    """The cdlrm_tpu StepConfig fields that the port reads, under the same
+    names."""
 
     interaction_op: str = "dot"
     interaction_itself: bool = False
     loss_function: str = "mse"
     loss_weights: Tuple[float, ...] = (1.0, 1.0)
     loss_threshold: float = 0.0
-    # one device: the refill has no collective ('off'); 'strict' and 'delta'
-    # broadcast between replicas and come with multi-GPU data parallelism
+    # how the touched rows' replicas combine at an aggregate step:
+    # sum | mean (/ world size) | max (make_aggregate_step)
+    table_agg_op: str = "mean"
+    # leave the bias gradients out of the dense-gradient mean, so that biases
+    # diverge between replicas as in the reference (cdlrm_tpu
+    # _sync_dense_grads, step.py:460-487)
+    strict_bias_divergence: bool = False
+    # 'off': the refill has no collective (one replica). 'strict': evicted
+    # rows and then the whole cache are broadcast from rank 0. 'delta': the
+    # evicted rows only; the insert buffer is the same on every rank, so the
+    # trajectory equals strict's when table_agg_freq divides lookahead
+    # (Config.finalize falls back to strict otherwise)
     refill_broadcast: str = "off"
     compute_dtype: Optional[str] = None  # None/'float32' | 'bfloat16'
     # slots arrive as a [T, BYTES] uint8 bitstream of wire_bits-wide
@@ -321,11 +338,55 @@ def _md_mask(mask: Tuple[float, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(mask, dtype=torch.float32, device=device)[:, None, None]
 
 
+def _mean_over_ranks(group: DpGroup, grads, sums=(), skip=()):
+    """One collective for a step: the mean over the ranks of every tensor of
+    ``grads`` (but those at the positions in ``skip``, which stay local) and
+    the sum of the scalars ``sums``, all on one flat float32 buffer with the
+    scalars in its tail. Returns (grads, sums) as views of the reduced
+    buffer, the same bits on every rank."""
+    kept = [i for i in range(len(grads)) if i not in skip]
+    flat = torch.cat([grads[i].reshape(-1) for i in kept]
+                     + [v.reshape(1).to(torch.float32) for v in sums])
+    group.all_reduce_sum(flat)
+    n_sums = len(sums)
+    body = flat[: flat.shape[0] - n_sums] / group.world_size
+    out, pos = list(grads), 0
+    for i in kept:
+        n = grads[i].numel()
+        out[i] = body[pos: pos + n].view(grads[i].shape)
+        pos += n
+    tail = flat[flat.shape[0] - n_sums:]
+    return out, [tail[i] for i in range(n_sums)]
+
+
 def _finish(cfg: StepConfig, params, dflat, p, loss, targets, lr, b_loc: int,
-            dense_acc=None):
+            dense_acc=None, group: Optional[DpGroup] = None,
+            extra: Optional[list] = None):
     """The dense update, SGD or AdaGrad, and the step's metrics (cdlrm_tpu
-    ``finish``, step.py:613-628, without the pmean). Returns (params,
-    dense_acc, loss_sum, correct); ``dense_acc`` stays None under SGD."""
+    ``finish``, step.py:613-628). Returns (params, dense_acc, loss_sum,
+    correct); ``dense_acc`` stays None under SGD.
+
+    With a ``group`` of more than one rank the dense gradients become their
+    mean over the ranks (cdlrm_tpu ``_sync_dense_grads``: ``md_proj``
+    included, the biases left local under ``strict_bias_divergence``) and
+    ``loss_sum`` and ``correct`` their sums, in one collective
+    (:func:`_mean_over_ranks`); the tensors of the list ``extra`` (the
+    full-table step's embedding gradients) are replaced in place by their
+    means, taken in the same collective."""
+    # torch.round, like jnp.round, rounds half to even
+    correct = (torch.round(p) == targets).to(torch.float32).sum()
+    loss_sum = loss * b_loc
+    if group is not None and not group.single:
+        n_dense = len(dflat)
+        # the biases are the one-dimensional leaves (weights have two
+        # dimensions, md_proj three)
+        skip = ({i for i, g in enumerate(dflat) if g.dim() == 1}
+                if cfg.strict_bias_divergence else ())
+        synced, (loss_sum, correct) = _mean_over_ranks(
+            group, list(dflat) + (extra or []), (loss_sum, correct), skip)
+        dflat = synced[:n_dense]
+        if extra:
+            extra[:] = synced[n_dense:]
     if cfg.optimizer == "adagrad":
         params, dense_acc = _dense_adagrad(params, dflat, lr, dense_acc, cfg.adagrad_eps)
     else:
@@ -338,9 +399,7 @@ def _finish(cfg: StepConfig, params, dflat, p, loss, targets, lr, b_loc: int,
         params = dense_from_leaves(
             [w - lr * g for w, g in zip(param_leaves(params), dflat)], params
         )
-    # torch.round, like jnp.round, rounds half to even
-    correct = (torch.round(p) == targets).to(torch.float32).sum()
-    return params, dense_acc, loss * b_loc, correct
+    return params, dense_acc, loss_sum, correct
 
 
 def _check_optimizer(cfg: StepConfig) -> None:
@@ -351,10 +410,22 @@ def _check_optimizer(cfg: StepConfig) -> None:
         raise ValueError("optimizer='adagrad' does not support md_proj")
 
 
+def _mark_touched(touched: Optional[torch.Tensor], slots: torch.Tensor, trash_row: int) -> None:
+    """Set the step's slots in the rank's touched-row mask ``[R]`` uint8 and
+    clear the trash row (cdlrm_tpu step.py:702-704, :827-831, :896-900). On
+    the dedup wires ``slots`` is the unique bucket, whose padding is the
+    trash row. No mask (one replica): nothing to do."""
+    if touched is None:
+        return
+    touched[slots.long()] = 1
+    touched[trash_row] = 0
+
+
 def make_cached_train_step(
     geo: CacheGeometry, cfg: StepConfig, pooled_width: int = 0, block: int = 1,
+    group: Optional[DpGroup] = None,
 ) -> Callable:
-    """The one-device cached train step (cdlrm_tpu make_cached_train_step,
+    """The cached train step of one rank (cdlrm_tpu make_cached_train_step,
     step.py:524, no hot tier; SGD, or AdaGrad on the dedup wire).
 
     Plain wire (``cfg.dedup`` off, ``body`` step.py:632)::
@@ -400,10 +471,16 @@ def make_cached_train_step(
     ``params`` (and ``dense_acc``) come back as new dicts; the cache and
     ``embed_acc`` are updated in place, where cdlrm_tpu donates them;
     ``loss_sum`` and ``correct`` are device tensors, read by the caller when
-    it needs them. One replica means no dense-grad mean
-    (``_sync_dense_grads`` is the identity) and no touched-row mask
-    (cdlrm_tpu's ``track_touched`` is off on one replica). ``lr`` and
-    ``lr_embeds`` are Python floats already rounded to float32."""
+    it needs them. ``lr`` and ``lr_embeds`` are Python floats already rounded
+    to float32.
+
+    Every form takes the keyword ``touched``: the rank's ``[R]`` uint8
+    touched-row mask, set in place at the step's slots for the next aggregate
+    step (cdlrm_tpu's ``track_touched``); None, the default, tracks nothing,
+    as on one replica. With a ``group`` of more than one rank the inputs are
+    the rank's slice of the batch, the dense gradients are averaged over the
+    ranks and ``loss_sum`` and ``correct`` are summed over them, in one
+    collective a step (:func:`_finish`); one replica has no collective."""
     _check_optimizer(cfg)
     adagrad = cfg.optimizer == "adagrad"
     if adagrad and not cfg.dedup:
@@ -425,7 +502,7 @@ def make_cached_train_step(
     value_and_grad = functools.partial(_value_and_grad, cfg, pooled_width)
 
     def body(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets,
-             lr, lr_embeds):
+             lr, lr_embeds, touched=None):
         x = _upcast_x(x, cfg.cdtype)
         b_loc = targets.shape[0]
         if cfg.wire_pack:
@@ -451,7 +528,9 @@ def make_cached_train_step(
             ).to(torch.int32)
             upd_slots = torch.where(flat_slots == trash, spread, flat_slots)
         index_add_rows(cache, upd_slots, drows.contiguous(), alpha=-lr_embeds)
-        params, _, loss_sum, correct = _finish(cfg, params, dflat, p, loss, targets, lr, b_loc)
+        _mark_touched(touched, flat_slots, trash)
+        params, _, loss_sum, correct = _finish(
+            cfg, params, dflat, p, loss, targets, lr, b_loc, group=group)
         return params, cache, loss_sum, correct
 
     def decode(inv_wire, uniq_wire, uniq_counts, n_lk):
@@ -463,7 +542,7 @@ def make_cached_train_step(
         return _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts)
 
     def body_dedup(params, cache, x, inv_wire, ls_mask, uniq_wire, uniq_counts,
-                   aux_slots, aux_rows, targets, *tail):
+                   aux_slots, aux_rows, targets, *tail, touched=None):
         if adagrad:
             dense_acc, embed_acc, lr, lr_embeds = tail
         else:
@@ -501,8 +580,9 @@ def make_cached_train_step(
         # exactly zero; the count stays on the device
         nv = uniq_counts.sum() + 1
         scatter_add_rows(cache, uniq_slots, delta, nv)
+        _mark_touched(touched, uniq_slots, trash)
         params, dense_acc, loss_sum, correct = _finish(
-            cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc
+            cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc, group
         )
         if adagrad:
             return params, cache, dense_acc, embed_acc, loss_sum, correct
@@ -510,7 +590,7 @@ def make_cached_train_step(
 
     def body_coalesce(params, cache, pend, x, inv_wire, ls_mask, uniq_wire,
                       uniq_counts, uniq_blk, aux_slots, aux_rows, targets, lr,
-                      lr_embeds):
+                      lr_embeds, touched=None):
         """One step of a coalesced block: the forward reads the effective
         weight w_eff = cache - lr * pending, the per-lookup gradients go into
         the pending buffer, and the cache is written only by the aux staging;
@@ -539,13 +619,15 @@ def make_cached_train_step(
         # add lands on that one row
         d_eff = drows * (blk_rank != p_trash)[:, None].to(drows.dtype)
         index_add_rows(pend, blk_rank, d_eff)
-        params, _, loss_sum, correct = _finish(cfg, params, dflat, p, loss, targets, lr, b_loc)
+        _mark_touched(touched, uniq_slots, trash)
+        params, _, loss_sum, correct = _finish(
+            cfg, params, dflat, p, loss, targets, lr, b_loc, group=group)
         return params, cache, pend, loss_sum, correct
 
     if cfg.block_coalesce:
         n_in = 9  # the dedup wire's 8 per-batch inputs + uniq_blk
 
-        def coalesced_block(params, cache, *rest):
+        def coalesced_block(params, cache, *rest, touched=None):
             *flat, blk_slots, blk_counts, lr, lr_embeds = rest
             if len(flat) != block * n_in:
                 raise ValueError(f"{len(flat)} block inputs, want {block} x {n_in}")
@@ -554,7 +636,8 @@ def make_cached_train_step(
             losses, corrs = [], []
             for j in range(block):
                 params, cache, pend, loss_sum, correct = body_coalesce(
-                    params, cache, pend, *flat[j * n_in: (j + 1) * n_in], lr, lr_embeds
+                    params, cache, pend, *flat[j * n_in: (j + 1) * n_in], lr, lr_embeds,
+                    touched=touched,
                 )
                 losses.append(loss_sum)
                 corrs.append(correct)
@@ -574,7 +657,7 @@ def make_cached_train_step(
 
     n_state = 2 if adagrad else 0
 
-    def scanned(params, cache, *rest):
+    def scanned(params, cache, *rest, touched=None):
         # the optimizer state is carried through the block, as cdlrm_tpu's
         # scan carries it (step.py:1017-1043)
         flat, state, (lr, lr_embeds) = rest[: -2 - n_state], rest[-2 - n_state: -2], rest[-2:]
@@ -583,7 +666,8 @@ def make_cached_train_step(
         losses, corrs = [], []
         for j in range(block):
             params, cache, *out = single(
-                params, cache, *flat[j * n_in: (j + 1) * n_in], *state, lr, lr_embeds
+                params, cache, *flat[j * n_in: (j + 1) * n_in], *state, lr, lr_embeds,
+                touched=touched,
             )
             *state, loss_sum, correct = out
             losses.append(loss_sum)
@@ -630,9 +714,9 @@ def make_cached_eval_step(
     return step
 
 
-def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
-    """Refill (cdlrm_tpu make_refill_step, step.py:1174-1264, ``off``
-    mode)::
+def make_refill_step(cfg: StepConfig, trash_row: int,
+                     group: Optional[DpGroup] = None) -> Callable:
+    """Refill (cdlrm_tpu make_refill_step, step.py:1174-1292)::
 
         SGD:          step(cache, insert_slots, insert_rows, evict_slots)
                           -> (cache, evicted [E, D])
@@ -651,12 +735,21 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
     targets the trash row (outside the rows' valid prefix, so never written;
     its state is set to the padding's 0, which it already holds), evict
     padding reads row 0 and is discarded by the caller. ``accum`` is updated
-    in place."""
-    if cfg.refill_broadcast not in ("off", False):
-        raise NotImplementedError(
-            f"refill_broadcast={cfg.refill_broadcast!r} broadcasts between "
-            "replicas: multi-GPU data parallelism, ROADMAP.md queue 1"
-        )
+    in place.
+
+    ``cfg.refill_broadcast`` (``True`` reads as strict, ``False`` as off)
+    with a ``group`` of more than one rank: under ``strict`` and ``delta``
+    the evicted rows, and their state under the master state, become rank
+    0's before the bfloat16 cast, so every rank writes the same values back
+    to its masters; under ``strict`` the whole cache, and ``accum`` under
+    AdaGrad, become rank 0's after the insert (the reference's whole-cache
+    broadcast). ``delta`` relies on the insert buffer being the same on
+    every rank. ``off`` has no collective; one replica needs none."""
+    mode = {True: "strict", False: "off"}.get(cfg.refill_broadcast, cfg.refill_broadcast)
+    if mode not in ("strict", "delta", "off"):
+        raise ValueError(f"unsupported refill_broadcast mode: {mode!r}")
+    if group is None or group.single:
+        mode = "off"  # every refill collective is the identity
     _check_optimizer(cfg)
     adagrad = cfg.optimizer == "adagrad"
     master_state = adagrad and cfg.adagrad_master_state
@@ -664,6 +757,10 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
     def step(cache, insert_slots, insert_rows, evict_slots, accum=None, insert_acc=None):
         evicted = gather_rows(cache, evict_slots)
         ev_acc = accum[evict_slots.long()] if master_state else None
+        if mode != "off":
+            group.broadcast_from0(evicted)
+            if master_state:
+                group.broadcast_from0(ev_acc)
         if cfg.wire_rows_bf16:
             # the writeback's device-to-host copy moves half the bytes; the
             # evicted accumulators stay float32
@@ -675,13 +772,110 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
         scatter_set_rows(cache, insert_slots, insert_rows.to(torch.float32), nv_ins)
         if master_state:
             accum[insert_slots.long()] = insert_acc
+        elif adagrad:
+            accum[insert_slots.long()] = 0.0
+        if mode == "strict":
+            group.broadcast_from0(cache)
+            if adagrad:
+                group.broadcast_from0(accum)
+        if master_state:
             return cache, accum, evicted, ev_acc
         if adagrad:
-            accum[insert_slots.long()] = 0.0
             return cache, accum, evicted
         return cache, evicted
 
     return step
+
+
+def union_slots(flags: torch.Tensor, k: int, trash_row: int):
+    """Compact a ``[R]`` bool mask to its set rows in ascending order, as an
+    int32 ``[k]`` list padded with ``trash_row``, and their count (an int64
+    tensor on the device, at most k): ``jnp.nonzero(size=k, fill_value=...)``
+    with a static shape, so the host never waits for the device. Row i of the
+    mask goes to position (number of set rows before it); every other row,
+    and anything past the bucket, to a spare last position that is cut off."""
+    n_rows = flags.shape[0]
+    pos = torch.cumsum(flags, 0) - 1
+    dest = torch.where(flags & (pos < k), pos, k)
+    idx = torch.full((k + 1,), trash_row, dtype=torch.int32, device=flags.device)
+    idx.scatter_(0, dest, torch.arange(n_rows, dtype=torch.int32, device=flags.device))
+    return idx[:k].contiguous(), flags.sum().clamp(max=k)
+
+
+def make_aggregate_step(cfg: StepConfig, group: DpGroup, union_bucket: Optional[int] = None,
+                        trash_row: int = 0) -> Callable:
+    """The periodic touched-row aggregation (cdlrm_tpu make_aggregate_step,
+    step.py:1295-1409)::
+
+        SGD:     step(cache, touched) -> (cache, touched)
+        AdaGrad: step(cache, touched, accum) -> (cache, touched, accum)
+
+    The union of the rows that any rank touched since the last aggregation
+    (the maximum of the ranks' ``[R]`` uint8 masks) takes, on every rank,
+    the combination of all ranks' current values: ``sum``, ``mean`` (the sum
+    over the world size: every rank contributes, touched or not) or ``max``
+    (``cfg.table_agg_op``). Rows outside the union keep the rank's own
+    value. Under AdaGrad the row-wise state combines with the same op at the
+    same rows. All three tensors are updated in place and the mask comes
+    back cleared.
+
+    ``union_bucket`` = k selects the sparse exchange: the union is compacted
+    to a ``[k]`` slot list in ascending order, padded with the trash row,
+    and only those rows ride the collective. The list has a static shape
+    (:func:`union_slots`), so the host never waits for the device, and every
+    rank builds the same list from the same union. The rows are read with ``gather_rows`` and written
+    back with ``scatter_set_rows``, whose valid prefix is the union count, a
+    device int64 tensor: the padding is never written. The caller keeps the
+    union within the bucket (CachedDlrmTrainer picks it from the exact
+    bound). ``union_bucket=None`` is the dense form: one masked all-reduce
+    of the whole ``[R, D]`` cache, cheaper in bytes when the bound nears R."""
+    op = cfg.table_agg_op
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"unsupported table_agg_op: {op}")
+    adagrad = cfg.optimizer == "adagrad"
+
+    def combine(t):
+        if op == "max":
+            return group.all_reduce_max(t)
+        group.all_reduce_sum(t)
+        return t / group.world_size if op == "mean" else t
+
+    def union_of(touched):
+        return group.all_reduce_max(touched.clone())
+
+    if union_bucket is not None:
+        k = int(union_bucket)
+
+        def step(cache, touched, accum=None):
+            idx, count = union_slots(union_of(touched) != 0, k, trash_row)
+            agg_rows = combine(gather_rows(cache, idx))
+            scatter_set_rows(cache, idx, agg_rows, count)
+            touched.zero_()
+            if adagrad:
+                # the padding repeats the trash row: every copy writes the
+                # same combined value of its (meaningless) state
+                at = idx.long()
+                accum[at] = combine(accum[at])
+                return cache, touched, accum
+            return cache, touched
+
+        return step
+
+    fill = float("-inf") if op == "max" else 0.0
+
+    def step_dense(cache, touched, accum=None):
+        flags = union_of(touched) != 0
+        mask = flags[:, None]
+        agg = combine(torch.where(mask, cache, fill))
+        cache.copy_(torch.where(mask, agg, cache))
+        touched.zero_()
+        if adagrad:
+            acc_agg = combine(torch.where(flags, accum, fill))
+            accum.copy_(torch.where(flags, acc_agg, accum))
+            return cache, touched, accum
+        return cache, touched
+
+    return step_dense
 
 
 # --------------------------------------------------------------------------
@@ -689,12 +883,13 @@ def make_refill_step(cfg: StepConfig, trash_row: int) -> Callable:
 # --------------------------------------------------------------------------
 
 
-def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable:
+def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False,
+                              group: Optional[DpGroup] = None) -> Callable:
     """Train step with the full embedding tables on the device (cdlrm_tpu
-    make_fulltable_train_step, step.py:1417, one device)::
+    make_fulltable_train_step, step.py:1417)::
 
         SGD:     step(params, tables, offsets, x, ls_i, ls_mask, targets, lr,
-                      lr_embeds, entries=None)
+                      lr_embeds, entries=None, global_ids=None)
                       -> (params, tables, loss_sum, correct)
         AdaGrad: step(params, tables, offsets, x, ls_i, ls_mask, targets,
                       dense_acc, emb_acc, lr, lr_embeds)
@@ -729,11 +924,25 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
     distinct rows' gradients with ``_rowwise_adagrad_scale`` before the same
     row add. cdlrm_tpu scales every row of each table, but an untouched row
     has g = 0: its state stays ``acc + 0`` and its delta is 0, so the two
-    agree."""
+    agree.
+
+    With a ``group`` of more than one rank (fully synchronous data
+    parallelism, cdlrm_tpu step.py:1420-1425: dense and embedding gradients
+    are both averaged) ``x``, ``ls_i``, ``ls_mask`` and ``targets`` are the
+    rank's slice of the batch and ``global_ids`` the whole batch's ids
+    ``[T, B_glob(, P)]``, which every rank streams. The distinct rows of the
+    whole batch are therefore the same sorted list on every rank without
+    talking; the rank's gradient is segment-summed into that ``[U_glob, D]``
+    leaf by the expand's backward (``index_add_rows``), and one collective
+    takes the mean of it, of the compressed tables' tensors and of the dense
+    gradients, and the metrics' sums (:func:`_finish`). Every rank then
+    applies the same update to its replica of the tables."""
     _check_optimizer(cfg)
     adagrad = cfg.optimizer == "adagrad"
+    many = group is not None and not group.single
 
-    def step(params, tables, offsets, x, ls_i, ls_mask, targets, *tail, entries=None):
+    def step(params, tables, offsets, x, ls_i, ls_mask, targets, *tail, entries=None,
+             global_ids=None):
         if adagrad:
             dense_acc, emb_acc, lr, lr_embeds = tail
         else:
@@ -746,13 +955,21 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
         # embedding_forward decides by the index rank
         pooled_width = ls_i.shape[2] if pooled and ls_i.dim() == 3 else 0
         targets = targets.to(torch.float32)
-        plain_ids = ls_i[[t for t, e in enumerate(entries) if e is None]] if compressed else ls_i
+        if many and global_ids is None:
+            raise ValueError("a data-parallel full-table step needs global_ids")
+        plain = [t for t, e in enumerate(entries) if e is None] if compressed else None
+        plain_ids = ls_i if plain is None else ls_i[plain]
         leaves = []
         if plain_ids.shape[0]:
             # torch.unique waits for the device (its output size is data
             # dependent): acceptable for the full-table trainer, an oracle
             # and a small-config path, not for the cached hot loop
-            uniq, inv = torch.unique(global_rows(plain_ids, offsets), return_inverse=True)
+            if many:
+                all_ids = global_ids if plain is None else global_ids[plain]
+                uniq = torch.unique(global_rows(all_ids, offsets))  # sorted
+                inv = torch.searchsorted(uniq, global_rows(plain_ids, offsets))
+            else:
+                uniq, inv = torch.unique(global_rows(plain_ids, offsets), return_inverse=True)
             inv = inv.to(torch.int32)
             leaves.append(gather_rows(tables, uniq).requires_grad_())  # rows_u [U, D]
         n_plain = len(leaves)
@@ -768,6 +985,11 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
 
         loss, p, dflat, dleaves = _value_and_grad(
             cfg, pooled_width, params, leaves, expand, x, ls_mask, targets, t_count, b_loc,
+        )
+        # the dense update first: with more than one rank its collective
+        # also averages the embedding gradients, in place in ``dleaves``
+        params, dense_acc, loss_sum, correct = _finish(
+            cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc, group, dleaves
         )
         if n_plain:
             d_rows_u = dleaves[0]
@@ -785,9 +1007,6 @@ def make_fulltable_train_step(cfg: StepConfig, pooled: bool = False) -> Callable
         for e in compressed:
             for w in e.leaves():
                 w.sub_(lr_embeds * next(grads))
-        params, dense_acc, loss_sum, correct = _finish(
-            cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc
-        )
         if adagrad:
             return params, tables, dense_acc, emb_acc, loss_sum, correct
         return params, tables, loss_sum, correct

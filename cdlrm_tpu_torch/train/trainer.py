@@ -1,5 +1,7 @@
-"""Cached DLRM training and serving on one device, the counterpart of
-cdlrm_tpu/train/trainer.py::CachedDlrmTrainer at ``world_size=1``.
+"""Cached DLRM training and serving, the counterpart of
+cdlrm_tpu/train/trainer.py::CachedDlrmTrainer: one device, or
+``world_size`` processes that each own one device and one cache replica
+(parallel/mesh.py).
 
 The host side is this package's copy of cdlrm_tpu's (cache/, data/,
 ops/native.py, train/pipeline.py, utils/): masters, the cache controller
@@ -24,6 +26,18 @@ insert plan, ``save_checkpoint`` (cdlrm_tpu's single-host format v3,
 optionally written on a background thread), ``load_checkpoint`` and
 ``close``. What is not, ``_check_slice`` refuses (ROADMAP.md queue 1 names
 where each comes).
+
+Data parallelism (``world_size`` > 1) takes the shape of cdlrm_tpu's
+multi-host design: every rank streams the same batches, runs its own
+prefetcher and keeps bit-identical cache metadata, probes and stages only
+its slice ``[r*b_loc, (r+1)*b_loc)`` of each batch, and holds its own
+masters, which stay equal because evicted rows are broadcast from rank 0
+before the writeback. The train step averages the dense gradients, the
+aggregate step combines the touched rows every ``table_agg_freq`` steps,
+the refill broadcasts from rank 0, eval scores each rank's slice and brings
+the scores together, and rank 0 alone prints, logs and writes the
+checkpoint. Every collective is called by the train thread, in the same
+order on every rank.
 
 Ordering on the card: every step, refill and staging copy runs on the
 device's default stream, and the host-to-device copies of the pipeline and
@@ -65,6 +79,7 @@ from cdlrm_tpu_torch.models.dlrm import (
     param_leaves, init_dlrm, map_params, params_from_jax, params_to_jax,
 )
 from cdlrm_tpu_torch.models.tricks import xavier_uniform
+from cdlrm_tpu_torch.parallel.mesh import DpGroup, local_batch_rows, make_dp_mesh
 from cdlrm_tpu_torch.parallel.multihost import RowShard, ShardedMasterTables
 from cdlrm_tpu_torch.train import step as step_lib
 
@@ -135,13 +150,34 @@ class _ProbeStats:
         self.lookups += num_lookups
         self.table_hits += hit_counts
 
-    def commit(self, m: TrainMetrics) -> None:
-        m.hits += self.hits
+    def commit(self, m: TrainMetrics, waiting: Optional[np.ndarray] = None) -> None:
+        """Add the counts to ``m``. ``waiting`` (more than one rank: the
+        lookups are the whole batch's, the hits this rank's) takes the hits
+        and per-table hits instead, until the ranks add theirs up
+        (``CachedDlrmTrainer._sync_hits``)."""
         m.lookups += self.lookups
+        m.table_lookups += self.lookups // self.table_hits.shape[0]
+        if waiting is not None:
+            waiting[0] += self.hits
+            waiting[1:] += self.table_hits
+            return
+        m.hits += self.hits
         if m.table_hits is None:
             m.table_hits = np.zeros(self.table_hits.shape[0], dtype=np.int64)
         m.table_hits += self.table_hits
-        m.table_lookups += self.lookups // self.table_hits.shape[0]
+
+
+class _RankHits:
+    """One rank's hit counts that the other ranks have not seen yet. With
+    more than one rank each probes only its batch slice: the lookups are
+    known everywhere (every rank sees the whole batch), the hits are added
+    up over the ranks at the print cadence, at an eval pass and at the end
+    of ``train``, not at every step (cdlrm_tpu adds every replica's probe
+    counts in its one process, trainer.py:1318)."""
+
+    def __init__(self, t_count: int):
+        self.train = np.zeros(1 + t_count, dtype=np.int64)  # hits, per-table hits
+        self.eval_hits = 0
 
 
 class _WindowStager(threading.Thread):
@@ -280,7 +316,6 @@ def _check_slice(cfg: Config) -> None:
     """Refuse the config fields this port does not implement yet, rather
     than ignore them (ROADMAP.md queue 1 names where each comes)."""
     unsupported = {
-        "world_size > 1 (multi-GPU)": cfg.world_size > 1,
         "coordinator_address (multi-host)": bool(cfg.coordinator_address),
         "hot_tier_rows > 0 (hot tier)": cfg.hot_tier_rows > 0,
         "sorted_dedup_wire": cfg.sorted_dedup_wire,
@@ -294,14 +329,20 @@ def _check_slice(cfg: Config) -> None:
 
 
 class CachedDlrmTrainer:
-    """Cached DLRM on one device: training and serving."""
+    """Cached DLRM on one device, or one rank of a data-parallel run:
+    training and serving."""
 
     def __init__(self, cfg: Config, dataset, test_dataset=None, *,
-                 device, pooled_width: Optional[int] = None):
+                 device, pooled_width: Optional[int] = None,
+                 group: Optional[DpGroup] = None):
         """``dataset`` / ``test_dataset`` expose batches() (restartable),
         __len__, m_den and ln_emb, as for cdlrm_tpu. ``device`` is where the
         cache and the dense parameters live. ``pooled_width``: P for padded
-        multi-hot bags; by default read from the first training batch."""
+        multi-hot bags; by default read from the first training batch.
+        ``group``: this rank's :class:`DpGroup` when ``cfg.world_size`` > 1;
+        by default the process group the caller has already joined is
+        wrapped (parallel/mesh.py::make_dp_mesh), and one replica needs
+        none."""
         if cfg.ln_emb is None:
             raise ValueError(
                 "call cdlrm_tpu_torch.config.finalize(cfg) (or build_dataset) first"
@@ -311,13 +352,30 @@ class CachedDlrmTrainer:
         self.test_dataset = test_dataset
         self.device = torch.device(device)
         use_device(self.device)
+        _check_slice(cfg)
+        self.group = group if group is not None else make_dp_mesh(cfg.world_size)
+        self.ndev = self.group.world_size
+        if self.ndev != cfg.world_size:
+            raise ValueError(
+                f"the group has {self.ndev} ranks, config world_size={cfg.world_size}"
+            )
+        if self.ndev > 1 and cfg.refill_broadcast in (False, "off"):
+            # every rank writes evicted rows back to masters of its own: only
+            # rank 0's values, broadcast at the refill, keep them equal
+            # (cdlrm_tpu's rule for multi-host runs, trainer.py:261-265)
+            raise ValueError(
+                "world_size > 1 (one process per device, each with its own "
+                "masters) requires refill_broadcast='strict' or 'delta' "
+                "(evicted-row broadcast)"
+            )
         if pooled_width is None:
             first = next(iter(dataset.batches()))
             pooled_width = 0 if first.ls_mask is None else first.ls_i.shape[2]
         self.pooled_width = pooled_width
 
         b_loc = cfg.local_batch_size
-        test_b_loc = cfg.test_mini_batch_size
+        test_b_loc = -(-cfg.test_mini_batch_size // self.ndev)
+        self._test_b_loc = test_b_loc
         aux_cap = cfg.aux_capacity if cfg.aux_capacity > 0 else (
             max(b_loc, test_b_loc) * max(1, pooled_width)
         )
@@ -329,7 +387,6 @@ class CachedDlrmTrainer:
         rows_per_table = self.geo.ways * self.geo.sets + self.geo.aux_capacity
         self._wire_bits = step_lib.wire_width(int(rows_per_table.max()) - 1)
         self._wire_pack = bool(cfg.pack_wire and self._wire_bits <= step_lib.WIRE_MAX_BITS)
-        _check_slice(cfg)
         if cfg.qr_flag:
             # cdlrm_tpu's error (trainer.py:285-294)
             raise ValueError(
@@ -392,6 +449,16 @@ class CachedDlrmTrainer:
         self.cache = torch.zeros(
             (self.geo.total_rows, self.geo.dim), dtype=torch.float32, device=self.device
         )
+        # one replica: aggregation is the identity, so the aggregate step and
+        # the per-step touched marks are skipped (cdlrm_tpu trainer.py:479-481)
+        self._needs_agg = self.ndev > 1
+        # the rows this rank touched since the last aggregate step; uint8,
+        # the type its max-reduce travels in
+        self.touched = (
+            torch.zeros(self.geo.total_rows, dtype=torch.uint8, device=self.device)
+            if self._needs_agg else None
+        )
+        self._rank_hits = _RankHits(len(cfg.ln_emb)) if self.ndev > 1 else None
         # AdaGrad state (cdlrm_tpu trainer.py:381-419): one row-wise
         # accumulator per cache row, on the device beside the cache, and one
         # dense accumulator per parameter; SGD carries none
@@ -442,7 +509,10 @@ class CachedDlrmTrainer:
             loss_function=cfg.loss_function,
             loss_weights=tuple(cfg.loss_weights_list),
             loss_threshold=cfg.loss_threshold,
-            refill_broadcast="off",
+            table_agg_op=cfg.table_agg_op,
+            strict_bias_divergence=cfg.strict_bias_divergence,
+            # one replica: every refill collective is the identity
+            refill_broadcast="off" if self.ndev == 1 else cfg.refill_broadcast,
             compute_dtype=cfg.compute_dtype,
             wire_pack=self._wire_pack,
             wire_bits=self._wire_bits,
@@ -460,7 +530,9 @@ class CachedDlrmTrainer:
         # the eval wire is always the plain slot wire (cdlrm_tpu
         # trainer.py:475-478): no dedup variant is needed to serve
         self.eval_step = step_lib.make_cached_eval_step(self.geo, scfg, self.pooled_width)
-        self.refill_step = step_lib.make_refill_step(scfg, trash_row=self.geo.trash_row)
+        self.refill_step = step_lib.make_refill_step(
+            scfg, trash_row=self.geo.trash_row, group=self.group)
+        self.agg_step = self._make_agg_step(scfg) if self._needs_agg else None
         self._probe_fn = (
             functools.partial(self.controller.probe_wire, bits=self._wire_bits)
             if self._wire_pack else self.controller.probe
@@ -506,11 +578,42 @@ class CachedDlrmTrainer:
         self._stop_requested = False
         self.last_window: Optional[dict] = None  # most recent print-window stats
         self._metrics_fp = None
-        if cfg.metrics_log:
+        # rank 0 alone writes the log: the window metrics are the same on
+        # every rank
+        if cfg.metrics_log and self.group.rank == 0:
             log_dir = os.path.dirname(cfg.metrics_log)
             if log_dir:
                 os.makedirs(log_dir, exist_ok=True)
             self._metrics_fp = open(cfg.metrics_log, "a")
+
+    def _make_agg_step(self, scfg):
+        """The aggregate step in its sparse or dense form (cdlrm_tpu
+        trainer.py:548-576). Each step touches at most (global lookups per
+        step) distinct slots, so ``table_agg_freq * B_glob * T * max(1, P)``
+        bounds the union since the last aggregation exactly; the sparse
+        exchange takes that bound (capped at the cache's rows) as a
+        power-of-two bucket, or ``table_agg_bucket`` when it is given and
+        large enough, and above half the cache the dense form moves fewer
+        bytes."""
+        cfg, rows = self.cfg, self.geo.total_rows
+        union_bound = (cfg.table_agg_freq * cfg.mini_batch_size * len(cfg.ln_emb)
+                       * max(1, self.pooled_width))
+        if cfg.table_agg_bucket > 0:
+            if cfg.table_agg_bucket < min(union_bound, rows):
+                # past its bucket the sparse exchange would drop touched rows
+                raise ValueError(
+                    f"--table-agg-bucket {cfg.table_agg_bucket} is below the "
+                    f"exact touched-union bound {min(union_bound, rows)} "
+                    f"(table_agg_freq * batch * tables * pooled width, capped "
+                    "at cache rows); aggregation would silently drop rows"
+                )
+            bucket = cfg.table_agg_bucket
+        else:
+            bucket = pow2_bucket(min(union_bound, rows))
+        self._agg_bucket = bucket if bucket <= rows // 2 else None
+        return step_lib.make_aggregate_step(
+            scfg, self.group, union_bucket=self._agg_bucket, trash_row=self.geo.trash_row,
+        )
 
     def _log_metrics(self, kind: str, payload: dict) -> None:
         if self._metrics_fp is None:
@@ -750,6 +853,42 @@ class CachedDlrmTrainer:
             xt = xt.to(torch.bfloat16)
         return xt
 
+    def _local(self, batch: Batch) -> Batch:
+        """This rank's slice ``[r*b_loc, (r+1)*b_loc)`` of a batch that every
+        rank streams whole (cdlrm_tpu trainer.py:1305-1318); the batch itself
+        on one replica."""
+        if self.ndev == 1:
+            return batch
+        g = self.group
+        return Batch(
+            local_batch_rows(batch.x, g), local_batch_rows(batch.ls_i, g, axis=1),
+            None if batch.ls_mask is None else local_batch_rows(batch.ls_mask, g, axis=1),
+            local_batch_rows(batch.y, g),
+        )
+
+    @staticmethod
+    def _num_lookups(batch: Batch) -> int:
+        """The valid lookups of a whole batch, as the ranks' probes of its
+        slices count them together (``ProbeResult.num_lookups``)."""
+        return batch.ls_i.size if batch.ls_mask is None else int(batch.ls_mask.sum())
+
+    def _sync_hits(self) -> None:
+        """Add the ranks' waiting hit counts (train, per table, eval) into
+        every rank's metrics: one small collective, on the train thread."""
+        rh = self._rank_hits
+        if rh is None:
+            return
+        local = np.concatenate([rh.train, np.array([rh.eval_hits], dtype=np.int64)])
+        total = self.group.all_reduce_sum(self._to_device(local)).cpu().numpy()
+        m = self.metrics
+        m.hits += int(total[0])
+        if m.table_hits is None:
+            m.table_hits = np.zeros(total.shape[0] - 2, dtype=np.int64)
+        m.table_hits += total[1:-1]
+        m.eval_hits += int(total[-1])
+        rh.train[:] = 0
+        rh.eval_hits = 0
+
     def _probe(self, batch: Batch, probe):
         """Run a host probe over one batch (pooled bags flattened, masked
         positions invalid)."""
@@ -786,13 +925,16 @@ class CachedDlrmTrainer:
 
     def _assemble(self, batch: Batch, b_loc: int):
         """Probe and stage one training batch (cdlrm_tpu trainer.py:1272) in
-        the wire the current window uses. Called by the AssemblyPipeline
-        thread; returns (device inputs, probe stats, dedup flag, None)."""
+        the wire the current window uses: this rank's slice of it, with the
+        whole batch's lookup count. Called by the AssemblyPipeline thread;
+        returns (device inputs, probe stats, dedup flag, None)."""
         if self._dedup:
             return self._assemble_dedup(batch)
+        lookups = self._num_lookups(batch)
+        batch = self._local(batch)
         pr = self._probe(batch, self._probe_fn)
         stats = _ProbeStats(batch.ls_i.shape[0])
-        stats.add(pr.hit_counts, pr.num_lookups)
+        stats.add(pr.hit_counts, lookups)
         aux = self._pack_aux(pr.aux_slots, pr.aux_rows, "train")
         return self._stage_batch(batch, (pr.slots,), aux, train=True), stats, False, None
 
@@ -810,9 +952,11 @@ class CachedDlrmTrainer:
             probe = functools.partial(self.controller.probe_dedup, inv_bits=self._inv_bits)
         else:
             probe = self.controller.probe_dedup_raw
+        lookups = self._num_lookups(batch)
+        batch = self._local(batch)
         dr = self._probe(batch, probe)
         stats = _ProbeStats(batch.ls_i.shape[0])
-        stats.add(dr.hit_counts, dr.num_lookups)
+        stats.add(dr.hit_counts, lookups)
         u, cnt = dr.uniq, dr.uniq_counts
         # +1 for the reserved trash rank
         if self._scan_block > 1:
@@ -866,9 +1010,10 @@ class CachedDlrmTrainer:
             start_epoch=epoch0,
             skip_batches=(j0 // cfg.lookahead) * cfg.lookahead,
             shadow=self.controller.clone(),
-            # the window's miss and unique counts (_apply_window_stats)
+            # the window's miss and unique counts (_apply_window_stats),
+            # the worst over every replica's slice: the same on every rank
             stats_spec=(
-                (1, cfg.local_batch_size, self._dedup or self._dedup_auto, 0)
+                (self.ndev, cfg.local_batch_size, self._dedup or self._dedup_auto, 0)
                 if self._need_stats else None
             ),
             skip_first_plan=(j0 % cfg.lookahead != 0),
@@ -896,7 +1041,7 @@ class CachedDlrmTrainer:
         if fn is None:
             fn = self._step_cache[key] = step_lib.make_cached_train_step(
                 self.geo, self.step_cfg._replace(dedup=dedup, block_coalesce=coalesce),
-                self.pooled_width, block=size,
+                self.pooled_width, block=size, group=self.group,
             )
         return fn
 
@@ -1001,6 +1146,8 @@ class CachedDlrmTrainer:
 
         cfg = self.cfg
         use_device(self.device)
+        if self.group.rank != 0:
+            log_fn = _no_log  # rank 0 alone prints
         self._start_pipeline()
         pipe = self._pipe
         if self._stream_done:
@@ -1024,6 +1171,7 @@ class CachedDlrmTrainer:
         def print_window(j):
             nonlocal window_t0
             flush_pending()
+            self._sync_hits()
             dt = time.perf_counter() - window_t0
             m = self.metrics
             # ms/it excludes the refill time, reported on its own
@@ -1064,6 +1212,8 @@ class CachedDlrmTrainer:
             self.global_step += 1
             self._cursor = (cursor[0], cursor[1] + 1)
             j = self.global_step
+            if self._needs_agg and j % cfg.table_agg_freq == 0:
+                self._aggregate()
             if j % cfg.print_freq == 0:
                 print_window(j)
             if self.test_dataset is not None and cfg.test_freq > 0 and j % cfg.test_freq == 0:
@@ -1082,12 +1232,13 @@ class CachedDlrmTrainer:
 
         def block_cap():
             """The largest block from the current step that crosses no
-            cadence boundary, so every cadence fires at its global step (one
-            device: no aggregation cadence)."""
+            cadence boundary, so every cadence fires at its global step."""
             j = self.global_step
             cap = self._scan_block
             if max_steps is not None:
                 cap = min(cap, max_steps - j)
+            if self._needs_agg:
+                cap = min(cap, cadence_dist(j, cfg.table_agg_freq))
             cap = min(cap, cadence_dist(j, cfg.print_freq))
             if self.test_dataset is not None and cfg.test_freq > 0:
                 cap = min(cap, cadence_dist(j, cfg.test_freq))
@@ -1103,12 +1254,13 @@ class CachedDlrmTrainer:
             trainer.py:1951-1999); returns (loss_sum, correct)."""
             if not self._adagrad:
                 self.params, self.cache, loss, corr = step(
-                    self.params, self.cache, *args, self._lr, self._lr_emb
+                    self.params, self.cache, *args, self._lr, self._lr_emb,
+                    touched=self.touched,
                 )
                 return loss, corr
             (self.params, self.cache, self.dense_acc, self.embed_acc, loss, corr) = step(
                 self.params, self.cache, *args, self.dense_acc, self.embed_acc,
-                self._lr, self._lr_emb,
+                self._lr, self._lr_emb, touched=self.touched,
             )
             return loss, corr
 
@@ -1124,8 +1276,9 @@ class CachedDlrmTrainer:
                 # the wire may change only at a window boundary; a batch in
                 # the other format would be misread by this step
                 raise RuntimeError("mixed wire formats within a window")
+            rh = self._rank_hits
             for it in items:
-                it[3].commit(self.metrics)
+                it[3].commit(self.metrics, None if rh is None else rh.train)
             if len(items) == 1:
                 cursor, _, inputs, _, _, _ = items[0]
                 pending.append(run_step(self._get_step(1, dedup), inputs))
@@ -1182,15 +1335,31 @@ class CachedDlrmTrainer:
                 wire_dedup = None
                 pipe.notify_refill_applied()
         flush_pending()
+        self._sync_hits()
         return self.metrics
+
+    def _aggregate(self) -> None:
+        """One touched-row aggregate step over the ranks (cdlrm_tpu
+        trainer.py:1850-1858); under AdaGrad the row-wise state rides with
+        the same op."""
+        if self._adagrad:
+            self.cache, self.touched, self.embed_acc = self.agg_step(
+                self.cache, self.touched, self.embed_acc)
+        else:
+            self.cache, self.touched = self.agg_step(self.cache, self.touched)
 
     # -------------------------------------------------------------- eval path
     def _probe_eval(self, batch: Batch):
-        """Host half of eval assembly: probe the batch against the occupancy
-        and gather its miss rows from the masters."""
+        """Host half of eval assembly: probe this rank's slice of the
+        (padded) batch against the occupancy and gather its miss rows from
+        the masters."""
+        self.metrics.eval_lookups += self._num_lookups(batch)
+        batch = self._local(batch)
         pr = self._probe(batch, self._probe_fn)
-        self.metrics.eval_hits += int(pr.hit_counts.sum())
-        self.metrics.eval_lookups += pr.num_lookups
+        if self._rank_hits is not None:
+            self._rank_hits.eval_hits += int(pr.hit_counts.sum())
+        else:
+            self.metrics.eval_hits += int(pr.hit_counts.sum())
         return batch, pr.slots, pr.aux_slots, pr.aux_rows
 
     def _stage_eval(self, probed):
@@ -1210,10 +1379,18 @@ class CachedDlrmTrainer:
         forward share the device's default stream, so stream order puts each
         batch's inputs before its forward. Each batch's scores are copied
         into pinned host memory right after its forward, and an event marks
-        the copy; the host waits on that event one batch later."""
+        the copy; the host waits on that event one batch later.
+
+        With more than one rank (cdlrm_tpu trainer.py:2098-2147) the batch is
+        padded to ``world_size * tb_loc`` rows, each rank scores its slice
+        with its own cache replica, and the scores come together in rank
+        order on every rank (one collective a batch, on this thread), so
+        every rank computes the same accuracy and AUC."""
         cfg = self.cfg
         use_device(self.device)
-        tb = cfg.test_mini_batch_size
+        if self.group.rank != 0:
+            log_fn = _no_log
+        tb = self._test_b_loc * self.ndev
         total, correct = 0, 0
         auc = StreamingAUC()
         on_cuda = self.device.type == "cuda"
@@ -1267,6 +1444,7 @@ class CachedDlrmTrainer:
                     raise item
                 n, y, inputs = item
                 self.cache, scores = self.eval_step(self.params, self.cache, *inputs)
+                scores = self.group.gather_batch_rows(scores)
                 scores_host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=on_cuda)
                 scores_host.copy_(scores, non_blocking=on_cuda)
                 done = None
@@ -1281,6 +1459,7 @@ class CachedDlrmTrainer:
         finally:
             stop.set()
             producer.join(timeout=30)
+        self._sync_hits()
         acc = correct / max(1, total)
         auc_v = auc.result()
         log_fn(f"Test accuracy = {100.0 * acc:.4f}%  AUC = {auc_v:.5f}")
@@ -1333,15 +1512,30 @@ class CachedDlrmTrainer:
         ``dense_acc.npz`` (``leaf_i`` in tree_flatten order: the bottom MLP,
         the ``md_proj`` projections of cached mixed-dimension tables, the top
         MLP), ``cache.npy``,
-        ``embed_acc.npy``, ``touched.npy`` (all False: one device has no
-        pending aggregation, and cdlrm_tpu's loader reads it),
+        ``embed_acc.npy``, ``touched.npy`` (the rows waiting for the next
+        aggregate step; all False on one device),
         ``acc_store.npz`` with ``adagrad_master_state``, ``occupancy.npz``
         and ``master.npz``: the dirty rows, or the full save for
         ``checkpoint_masters='full'`` and for masters without dirty tracking
-        (virtual masters), written on the train thread."""
+        (virtual masters), written on the train thread.
+
+        With more than one rank it is still one file set, cdlrm_tpu's at the
+        same ``world_size`` (trainer.py:2289-2300), written by rank 0:
+        ``cache.npy`` ``[N*R, D]``, ``touched.npy`` ``[N*R]`` and
+        ``embed_acc.npy`` ``[N*R]`` hold the ranks' blocks in rank order
+        (replicas differ between aggregations, and the mask is the pending
+        aggregation), gathered to rank 0 over the host as part of the
+        snapshot; the parameters, occupancy and masters are rank 0's, equal
+        on every rank. Every rank flushes its own eviction queue first. A
+        barrier after a synchronous write keeps a rank from loading files
+        that are not there yet; under ``checkpoint_async`` the gather alone
+        keeps the ranks in step and rank 0's next save, load or close joins
+        the writer."""
         self._ckpt_writer.join()
         use_device(self.device)
-        os.makedirs(path, exist_ok=True)
+        rank0 = self.group.rank == 0
+        if rank0:
+            os.makedirs(path, exist_ok=True)
         if not self.eviction_manager.flush(timeout=self.cfg.eviction_fifo_timeout):
             raise RuntimeError(
                 "eviction writeback flush timed out; checkpoint would miss "
@@ -1362,10 +1556,25 @@ class CachedDlrmTrainer:
         def npz(name, payload):
             writes.append((_write_npz, os.path.join(path, name), payload))
 
-        npy("cache.npy", host(self.cache))
-        npy("touched.npy", np.zeros(self.geo.total_rows, dtype=bool))
+        def blocks(arr: np.ndarray):
+            """Every rank's block in rank order, on rank 0; None elsewhere."""
+            if self.ndev == 1:
+                return arr
+            got = self.group.gather_host_to0(arr)
+            return None if got is None else np.concatenate(got)
+
+        touched = (np.zeros(self.geo.total_rows, dtype=bool) if self.touched is None
+                   else host(self.touched).astype(bool))
+        state = [("cache.npy", blocks(host(self.cache))), ("touched.npy", blocks(touched))]
         if self._adagrad:
-            npy("embed_acc.npy", host(self.embed_acc))
+            state.append(("embed_acc.npy", blocks(host(self.embed_acc))))
+        if not rank0:
+            # the files are rank 0's; this rank leaves when they are written
+            if not self.cfg.checkpoint_async:
+                self.group.barrier()
+            return
+        for name, arr in state:
+            npy(name, arr)
         if self._acc_master is not None:
             # the store's nonzero support; payload() copies
             npz("acc_store.npz", self._acc_master.payload())
@@ -1388,17 +1597,20 @@ class CachedDlrmTrainer:
         }
         writes.append((_write_pickle, os.path.join(path, "meta.pkl"), meta))
         self._ckpt_writer.run(writes, background=self.cfg.checkpoint_async)
+        if not self.cfg.checkpoint_async:
+            self.group.barrier()
 
     def load_checkpoint(self, path: str) -> None:
         """Load a single-host checkpoint of either package (meta.pkl,
         dense_params.npz, cache.npy, occupancy.npz, master.npz, and the
         AdaGrad state) and its data cursor, so that training resumes where
-        it stopped. It raises cdlrm_tpu's errors (trainer.py:2425-2469) when
+        it stopped. Every rank reads the one file set and takes block
+        ``rank`` of ``cache.npy``, ``touched.npy`` and ``embed_acc.npy``; the
+        saved ``world_size`` must be this run's. It raises cdlrm_tpu's errors (trainer.py:2425-2469) when
         the checkpoint's optimizer state does not fit this run: AdaGrad state
         under an SGD training run (``--inference-only`` loads it: serving
         never reads it), no AdaGrad state under AdaGrad, no accumulator
-        store under ``adagrad_master_state``. The touched-row mask is
-        aggregation state that one device never needs."""
+        store under ``adagrad_master_state``."""
         self._ckpt_writer.join()
         if self._pipeline_started:
             raise RuntimeError(
@@ -1425,12 +1637,17 @@ class CachedDlrmTrainer:
                 )
             leaves = [data[f"leaf_{i}"] for i in range(n_leaves)]
         self.params = params_from_jax(leaves, n_bot=n_bot, device=self.device, md_proj=md)
-        cache0 = np.load(os.path.join(path, "cache.npy"))
-        if cache0.shape != tuple(self.cache.shape):
+        rows, dim = self.cache.shape
+        cache0 = np.load(os.path.join(path, "cache.npy"), mmap_mode="r")
+        if cache0.shape != (self.ndev * rows, dim):
+            same_geometry = cache0.shape[0] % rows == 0 and cache0.shape[1] == dim
             raise ValueError(
-                f"checkpoint cache {cache0.shape} != this geometry's "
-                f"{tuple(self.cache.shape)} (one replica; saved with world_size=1?)"
+                f"checkpoint cache {cache0.shape} != {self.ndev} replicas of this "
+                f"geometry's {(rows, dim)}: saved with world_size="
+                f"{cache0.shape[0] // rows if same_geometry else '?'}, "
+                f"this run has world_size={self.ndev}"
             )
+        mine = slice(self.group.rank * rows, (self.group.rank + 1) * rows)
         acc_path = os.path.join(path, "embed_acc.npy")
         if not self._adagrad and os.path.exists(acc_path) and not self.cfg.inference_only:
             raise ValueError(
@@ -1453,7 +1670,7 @@ class CachedDlrmTrainer:
                     "accumulator store (saved without the flag?); resume "
                     "with the matching setting"
                 )
-            self.embed_acc = torch.from_numpy(np.load(acc_path)).to(self.device)
+            self.embed_acc = torch.from_numpy(np.load(acc_path)[mine]).to(self.device)
             with np.load(os.path.join(path, "dense_acc.npz")) as data:
                 acc_leaves = [data[f"leaf_{i}"] for i in range(n_leaves)]
             self.dense_acc = params_from_jax(acc_leaves, n_bot=n_bot, device=self.device,
@@ -1461,7 +1678,10 @@ class CachedDlrmTrainer:
             if self._acc_master is not None:
                 with np.load(store_path) as data:
                     self._acc_master.load_payload(data)
-        self.cache = torch.from_numpy(cache0).to(self.device)
+        self.cache = torch.from_numpy(np.array(cache0[mine])).to(self.device)
+        if self.touched is not None:
+            touched0 = np.load(os.path.join(path, "touched.npy"))[mine]
+            self.touched = torch.from_numpy(touched0.astype(np.uint8)).to(self.device)
         with np.load(os.path.join(path, "occupancy.npz")) as data:
             self.controller.load_state_dict(dict(data))
         self._load_master(os.path.join(path, "master.npz"))
@@ -1495,6 +1715,10 @@ class CachedDlrmTrainer:
                         t.join(timeout=0.05)
                         if t in threads:
                             t.stop()
+
+
+def _no_log(*_args, **_kwargs) -> None:
+    """The ``log_fn`` of every rank but 0."""
 
 
 def _pad_batch(batch: Batch, to_size: int) -> Batch:

@@ -33,7 +33,14 @@ ladder of 26 table sizes from 2,500 to 250,000 rows, with an eval pass and
 the padded cache columns read back exactly zero; (i) full-table QR and (j)
 full-table MD on the same ladder, each saved and loaded bit-equal; and a
 short cached training under the profiler, whose trace must name the
-kernels of row_ops.cu. Each run
+kernels of row_ops.cu; and data parallelism as two ranks that share the one
+card and exchange over gloo (each a process of this script with its own
+cache replica, prefetcher and masters): (k) 30 counted steps on the dedup
+wire with the touched rows aggregated (mean) after every step and the
+refill's evicted rows broadcast (``refill_broadcast='delta'``), then an eval
+pass, a checkpoint that a fresh pair loads bit-equal, and one step of each
+rank against the port on the CPU over the same group; (l) a few steps under
+``strict``, whose refill broadcasts the whole cache. Each run
 resets every kernel's launch count just before it and reads them just after.
 One serving batch, one train step of each cached run, one coalesced block,
 one full-table step and one full-table AdaGrad step are checked against the
@@ -114,6 +121,10 @@ TRICK_THRESHOLD, TRICK_STEPS, PROFILE_STEPS = 10_000, 10, 10
 # AdaGrad steps can lie apart: 2 * lr, times sqrt(D) under the row-wise rule.
 # The accumulators, loss and SGD paths stay held to SCORE_TOL
 AG_BULK_TOL, AG_OUTLIERS = 1e-4, 1e-2
+# Phase 12: two ranks on the one card, a gloo group asked for by name (NCCL
+# refuses two ranks on one device). The strict run is short: gloo stages a
+# CUDA tensor through the host, and its refill broadcasts the whole cache
+DP_WORLD, DP_STRICT_STEPS, DP_EVAL_BATCHES, DP_TIMEOUT_S = 2, 2 * LOOKAHEAD + 1, 2, 800
 TIMING_REPS = 25
 # each kernel and its plain version are timed in interleaved rounds of
 # TIMING_REPS launches, kernel first in even rounds and plain first in odd
@@ -1471,10 +1482,276 @@ def profiled_run(card: str, dev: torch.device) -> dict:
     return dict(launches=launches)
 
 
+def check_aggregate_kernels(card: str, rows: int, dev: torch.device) -> None:
+    """The aggregate step's new kernel site, in phase 2's style: the union
+    list built with a static shape (``union_slots``) against ``nonzero``,
+    then ``gather_rows`` and ``scatter_set_rows`` at the bucket's ``[k]``
+    with the union count as the valid prefix, bit-exact against their plain
+    versions on the full-size cache."""
+    from cdlrm_tpu_torch.ops.lookup import gather_rows, gather_rows_ref
+    from cdlrm_tpu_torch.ops.scatter import scatter_set_rows, scatter_set_rows_ref
+    from cdlrm_tpu_torch.train.step import union_slots
+    from cdlrm_tpu_torch.utils.padding import pow2_bucket
+
+    k = pow2_bucket(TABLES * BATCH)  # table_agg_freq 1: the lookups of one global batch
+    trash = rows - 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    cache = torch.randn((rows, DIM), generator=g, device=dev)
+    for marked in (100_000, 0, k):
+        flags = torch.zeros(rows, dtype=torch.bool, device=dev)
+        flags[torch.randperm(trash, generator=g, device=dev)[:marked]] = True
+        idx, count = union_slots(flags, k, trash)
+        want = torch.full((k,), trash, dtype=torch.int32, device=dev)
+        want[:marked] = torch.nonzero(flags)[:, 0].to(torch.int32)
+        assert int(count) == marked and torch.equal(idx, want), f"union_slots at {marked} rows"
+        assert torch.equal(gather_rows(cache, idx), gather_rows_ref(cache, idx))
+        agg_rows = torch.randn((k, DIM), generator=g, device=dev)
+        got = scatter_set_rows(cache.clone(), idx, agg_rows, count)
+        ref = scatter_set_rows_ref(cache.clone(), idx, agg_rows, marked)
+        assert torch.equal(got, ref), f"scatter_set_rows at the union of {marked} rows"
+        assert torch.equal(got[trash], cache[trash]), "trash row written"
+    print(f"[{card}] aggregate step's site: union list [{k}] equal to nonzero's; gather_rows "
+          f"and scatter_set_rows at [{k}] (valid prefix = union count, read on the device) "
+          "bit-exact against their plain versions at 100,000, 0 and a full bucket of union rows")
+
+
+def same_on_all_ranks(group, t: torch.Tensor) -> bool:
+    """Whether ``t`` is the same bits on every rank; every rank learns it."""
+    ref = t.clone()
+    group.broadcast_from0(ref)
+    differs = torch.tensor([0 if torch.equal(ref, t) else 1], device=t.device)
+    return not bool(group.all_reduce_max(differs))
+
+
+def dp_run(card: str, dev: torch.device, group, mode: str, tmp: str) -> dict:
+    """One rank's part of a two-rank run at the headline geometry (global
+    batch 4096, 2048 a rank), ``refill_broadcast=mode``. ``delta``: set-up
+    steps, TRAIN_STEPS counted steps, one more step that holds both ranks'
+    union rows against each other, an eval pass, the parameter and master
+    checks, a checkpoint loaded into a fresh trainer pair, one step against
+    the CPU. ``strict``: DP_STRICT_STEPS steps and the parameter check. Rank 0
+    prints; every rank returns its launch counts."""
+    import zlib
+
+    from cdlrm_tpu_torch.models.dlrm import param_leaves
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    rank = group.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
+    delta = mode == "delta"
+    warm, steps = (TRAIN_WARM_STEPS, TRAIN_STEPS) if delta else (0, DP_STRICT_STEPS)
+    cfg = headline_config(world_size=DP_WORLD, lookahead=LOOKAHEAD, print_freq=1 << 30,
+                          dedup_lookups="on", table_agg_freq=1, table_agg_op="mean",
+                          refill_broadcast=mode)
+    train_ds = uniform_stream(cfg, warm + steps + 3, SEED + 2)
+    test_ds = uniform_stream(cfg, DP_EVAL_BATCHES, SEED + 3)
+    tr = CachedDlrmTrainer(cfg, train_ds, test_ds, device=dev, group=group)
+    b_loc, k = cfg.local_batch_size, tr._agg_bucket
+    assert k is not None, "the sparse aggregate form was expected at this geometry"
+    agg = {"s": 0.0, "calls": 0, "launches": None, "check": False, "union_rows": None}
+    inner = tr._aggregate
+
+    def aggregate():
+        union = group.all_reduce_max(tr.touched.clone()).bool() if agg["check"] else None
+        before = read_launches()
+        t0 = time.perf_counter()
+        inner()
+        torch.cuda.synchronize()
+        agg["s"] += time.perf_counter() - t0
+        agg["calls"] += 1
+        agg["launches"] = {n: c - before[n] for n, c in read_launches().items()}
+        if union is not None:
+            agg["union_rows"] = int(union.sum())
+            assert same_on_all_ranks(group, tr.cache[union]), (
+                "the ranks' caches differ on the union rows after an aggregate step")
+
+    tr._aggregate = aggregate
+    out = {}
+    try:
+        if warm:
+            tr.train(max_steps=warm)
+        torch.cuda.synchronize()
+        m = tr.metrics
+        base = (m.caching_overhead_s, m.refills, agg["s"], agg["calls"])
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.train(max_steps=warm + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        refill_s, refills = m.caching_overhead_s - base[0], m.refills - base[1]
+        agg_s, agg_calls = agg["s"] - base[2], agg["calls"] - base[3]
+        assert tr.global_step == warm + steps and refills > 0 and agg_calls == steps
+        dense_bytes = 4 * (sum(p.numel() for p in param_leaves(tr.params)) + 2)
+        rows = tr.geo.total_rows
+        say(f"[{card}] two ranks sharing one card over gloo, refill_broadcast={mode}: {steps} "
+            f"steps of {BATCH} ({b_loc} a rank) in {wall:.3f} s host wall, "
+            f"{steps * BATCH / wall:.1f} examples/s global ({1000 * wall / steps:.2f} ms/step); "
+            f"aggregate step {1000 * agg_s / agg_calls:.2f} ms on the train thread (mean of "
+            f"{agg_calls}, device work included); refill {1000 * refill_s / refills:.1f} ms on "
+            f"the train thread (mean of {refills}); bytes per collective, from tensor sizes: "
+            f"touched mask {rows}, union rows [{k}, {DIM}] {k * DIM * 4}, flat dense gradient "
+            f"and metrics {dense_bytes}"
+            + (f", strict cache broadcast {rows * DIM * 4}" if not delta else "")
+            + f"; loss {m.loss_sum / max(1, m.examples):.6f}, train hit rate {m.hit_rate:.6f}; "
+            f"kernel launches of the {steps} steps {out['launches']}; of one aggregate step "
+            f"{agg['launches']}")
+        assert agg["launches"] == {"gather_rows": 1, "scatter_set_rows": 1,
+                                   "scatter_add_rows": 0, "index_add_rows": 0}, agg["launches"]
+        assert np.isfinite(m.loss_sum)
+        flat = torch.cat([p.reshape(-1) for p in param_leaves(tr.params)])
+        assert same_on_all_ranks(group, flat), "dense parameters differ between the ranks"
+        say(f"  dense parameters ({flat.numel()} values) bit-equal on both ranks after the run")
+        if not delta:
+            return out
+        # one more step: the union rows of its aggregate step, rank against rank
+        agg["check"] = True
+        tr.train(max_steps=warm + steps + 1)
+        agg["check"] = False
+        say(f"  after an aggregate step (table_agg_freq 1) the {agg['union_rows']} union rows "
+            "are bit-equal on both ranks")
+        acc, auc = tr.evaluate()
+        assert np.isfinite(acc) and np.isfinite(auc), (acc, auc)
+        assert tr.eviction_manager.flush(timeout=120), "eviction writeback stalled"
+        # the masters: N full copies kept equal by the evicted rows' broadcast;
+        # a checksum of the rows of the first batches' ids (the first inserted,
+        # so the likeliest written back) and of a stride over every table
+        first = list(itertools.islice(train_ds.batches(), 8))
+        sums = []
+        for t in range(TABLES):
+            ids = np.unique(np.concatenate([b.ls_i[t] for b in first]
+                                           + [np.arange(0, ROWS, 97)]))
+            sums.append(zlib.crc32(np.ascontiguousarray(tr.master.gather(t, ids)).tobytes()))
+        assert same_on_all_ranks(group, torch.tensor(sums, dtype=torch.int64, device=dev)), (
+            "the ranks' masters differ after the writebacks")
+        say(f"  masters equal on both ranks after {tr.eviction_manager.rows_written} rows "
+            "written back (checksums of 26 tables' sampled rows)")
+
+        # checkpoint: one file set written by rank 0, loaded by a fresh pair
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        tr.save_checkpoint(ck)
+        save_s = time.perf_counter() - t0
+        snap = [tr.cache.clone(), tr.touched.clone()] + [p.clone() for p in param_leaves(tr.params)]
+        tr.close()
+        batch = list(itertools.islice(train_ds.batches(), warm + steps + 1))[-1]
+        inputs, _, dedup, _ = tr._assemble(batch, b_loc)
+        step = tr._get_step(1, dedup)
+        params_cpu, cache_cpu = _cpu_copy(tr.params), tr.cache.to("cpu", copy=True)
+        touched_cpu = tr.touched.to("cpu", copy=True)
+        # the card's step, then the same step on the CPU, each with its
+        # collective over the same gloo group, in the same order on both ranks
+        p_dev, c_dev, l_dev, _ = step(tr.params, tr.cache, *inputs, tr._lr, tr._lr_emb,
+                                      touched=tr.touched)
+        p_cpu, c_cpu, l_cpu, _ = step(params_cpu, cache_cpu, *[x.cpu() for x in inputs],
+                                      tr._lr, tr._lr_emb, touched=touched_cpu)
+        cache_err = _max_row_err(c_dev, c_cpu)
+        param_err = _max_param_err(p_dev, p_cpu)
+        loss_err = abs(float(l_dev) - float(l_cpu)) / BATCH
+        assert torch.equal(tr.touched.cpu(), touched_cpu), "touched masks differ from the CPU's"
+        assert max(cache_err, param_err, loss_err) <= SCORE_TOL, (cache_err, param_err, loss_err)
+        print(f"  rank {rank}: one step vs the port on the CPU over the same group: max |cache "
+              f"difference| {cache_err:.3e}, |param difference| {param_err:.3e}, |loss "
+              f"difference| {loss_err:.3e} (tolerance {SCORE_TOL}), touched masks equal")
+        del c_cpu, cache_cpu, params_cpu, p_dev, c_dev
+        tr.cache = tr.touched = None
+        torch.cuda.empty_cache()
+        tr = CachedDlrmTrainer(cfg, train_ds, test_ds, device=dev, group=group)
+        t0 = time.perf_counter()
+        tr.load_checkpoint(ck)
+        load_s = time.perf_counter() - t0
+        got = [tr.cache, tr.touched] + param_leaves(tr.params)
+        assert all(torch.equal(a, b) for a, b in zip(snap, got)), (
+            "the loaded checkpoint differs from the saved state")
+        assert tr.global_step == warm + steps + 1 and bool(tr.touched.any()) is False
+        size = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        say(f"  checkpoint of the pair: {size / 1e9:.3f} GB in one file set (cache.npy "
+            f"[{DP_WORLD}*{rows}, {DIM}]), saved in {save_s:.2f} s (the ranks' blocks gathered "
+            f"over the host), loaded into a fresh pair in {load_s:.2f} s, bit-equal on rank "
+            f"{rank} and its peer")
+        return out
+    finally:
+        tr.close()
+
+
+def dp_rank_main(rank: int, rdzv: str, tmp: str) -> int:
+    """One of phase 12's two ranks: a process of its own that makes cuda:0
+    current, joins a gloo group asked for by name, runs (k) and (l), writes
+    its launch counts to ``tmp/rank<r>.json`` and leaves with its threads
+    joined. Any failure exits non-zero, and the parent reads the code."""
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = card_line()
+    group = make_dp_mesh(DP_WORLD, rank, init_method="file://" + rdzv, backend="gloo",
+                         device=dev, timeout_s=DP_TIMEOUT_S)
+    assert group.backend == "gloo" and group.world_size == DP_WORLD
+    try:
+        result = {"k": dp_run(card, dev, group, "delta", tmp),
+                  "l": dp_run(card, dev, group, "strict", tmp)}
+    finally:
+        destroy_dp_mesh(group)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def two_ranks(card: str, rows: int, dev: torch.device) -> dict:
+    """Phase 12: data parallelism as two ranks on the one card. Checks the
+    aggregate step's kernel site here, then starts the two rank processes,
+    waits for both, fails on any exit code but 0 and returns the kernel
+    launches of their counted steps, added over the ranks and the runs."""
+    check_aggregate_kernels(card, rows, dev)
+    torch.cuda.empty_cache()
+    print(f"[{card}] phase 12 cannot show a trainer on cuda:1 in a process whose current "
+          "device is 0 (the kernel wrappers' current-device fault repaired unseen in an "
+          "earlier change): this machine has one card, and both ranks use cuda:0")
+    with tempfile.TemporaryDirectory(prefix="cdlrm_dp_") as tmp:
+        rdzv = os.path.join(tmp, "rdzv")
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(DP_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), rdzv, tmp],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO) for r in range(DP_WORLD)]
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            codes = [p.wait() for p in procs]
+            for r, log in enumerate(logs):
+                log.seek(0)
+                text = log.read()
+                log.close()
+                # rank 0 reports; the other rank's lines are its own checks
+                sys.stdout.write(text if r == 0 or any(codes) else "".join(
+                    line for line in text.splitlines(True) if line.startswith("  rank")))
+        assert codes == [0] * DP_WORLD, f"phase 12's ranks exited with {codes}"
+        results = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    launches = {name: sum(res[run]["launches"][name] for res in results for run in ("k", "l"))
+                for name in KERNELS}
+    print(f"[{card}] phase 12: both ranks exited 0; kernel launches of their counted steps, "
+          f"both ranks and both runs: {launches}")
+    assert all(launches[name] > 0 for name in KERNELS), launches
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
+        return dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from cdlrm_tpu_torch.cache.geometry import CacheGeometry
     from cdlrm_tpu_torch.ops import _build, native
 
@@ -1512,6 +1789,8 @@ def main() -> int:
     runs["i"] = fulltable_tricks(card, dev, "qr")
     runs["j"] = fulltable_tricks(card, dev, "md")
     runs["profiled"] = profiled_run(card, dev)
+    torch.cuda.empty_cache()
+    runs["two_ranks"] = two_ranks(card, rows, dev)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu")]
     assert not loaded, f"the port imported {loaded}"
@@ -1521,8 +1800,9 @@ def main() -> int:
                "scatter_add_rows": "cdlrm_tpu/ops/scatter.py:211",
                "index_add_rows": "cdlrm_tpu/ops/lookup.py:99"}
     # launches: the sum over the main-path runs (serving, training a to h,
-    # full-table training with SGD, AdaGrad, QR and MD, the profiled run),
-    # each counted from 0
+    # full-table training with SGD, AdaGrad, QR and MD, the profiled run, the
+    # two ranks' runs k and l as their processes counted them), each counted
+    # from 0
     launches = {name: served[name] + full["launches"][name] + full_ag["launches"][name]
                 + sum(run["launches"][name] for run in runs.values())
                 for name in KERNELS}

@@ -177,7 +177,6 @@ def test_cached_equals_fulltable_when_fully_resident(kw):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(world_size=2), "world_size"),
     (dict(coordinator_address="localhost:1234"), "coordinator_address"),
 ])
 def test_fulltable_refuses_unported_fields(kw, name):

@@ -211,6 +211,31 @@ def test_cli_profiles_without_jax(tmp_path):
     assert os.path.getsize(os.path.join(trace_dir, "trace.json")) > 0
 
 
+def test_cli_trains_two_ranks_without_jax(tmp_path):
+    """``--world-size 2`` on the CPU: the CLI spawns two ranks, which meet
+    over gloo. The spawned interpreters inherit no ``sys.modules``, so here
+    jax, ml_dtypes and cdlrm_tpu are blocked by modules of those names that
+    raise, placed ahead of the repo on the path of the CLI and its ranks."""
+    stubs = tmp_path / "stubs"
+    for name in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu"):
+        (stubs / name).mkdir(parents=True)
+        (stubs / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(stubs), REPO]), OMP_NUM_THREADS="1")
+    # run from another directory: the repo's own cdlrm_tpu must not shadow the stub
+    probe = subprocess.run(
+        [sys.executable, "-c", "import cdlrm_tpu"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=60)
+    assert probe.returncode != 0 and "cdlrm_tpu is blocked" in probe.stderr
+    res = subprocess.run(
+        [sys.executable, "-m", "cdlrm_tpu_torch.cli", *_SMALL, "--world-size", "2",
+         "--lookahead", "2", "--print-freq", "4", "--dedup-lookups", "on"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    # rank 0 alone prints
+    assert res.stdout.count("Step 8:") == 1 and res.stdout.count("Test accuracy") == 1
+
+
 def test_cli_refuses_training():
     """The CLI trains now; what it refuses is training with a field the port
     does not implement, before any data is read."""
@@ -284,13 +309,19 @@ def test_port_sources_import_neither_jax_nor_cdlrm_tpu():
     assert len(sources) > 25, sources  # the walk found the package
     walked = {os.path.relpath(p, os.path.join(REPO, "cdlrm_tpu_torch")) for p in sources}
     assert {os.path.join("parallel", "multihost.py"), os.path.join("utils", "profiling.py"),
-            os.path.join("models", "tricks.py")} <= walked
+            os.path.join("models", "tricks.py"), os.path.join("parallel", "mesh.py")} <= walked
     bad = {os.path.relpath(p, REPO): hits for p in sources if (hits := _forbidden_imports(p))}
     assert not bad, bad
 
 
 def test_chip_smoke_imports_neither_jax_nor_cdlrm_tpu():
     assert not _forbidden_imports(os.path.join(REPO, "chip_smoke.py"))
+
+
+def test_dp_worker_imports_neither_jax_nor_cdlrm_tpu():
+    """The ranks of the data-parallel tests run the port alone; the tests
+    that launch them make cdlrm_tpu's side themselves."""
+    assert not _forbidden_imports(os.path.join(REPO, "tests", "torch_dp_worker.py"))
 
 
 def test_forbidden_import_walk_sees_every_form(tmp_path):

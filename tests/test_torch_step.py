@@ -164,7 +164,17 @@ def test_refill_step_matches_jax(jax_pallas):
 
 
 def test_refill_step_refuses_unported_modes():
-    for cfg in (tstep.StepConfig(refill_broadcast="strict"),
-                tstep.StepConfig(refill_broadcast="delta")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.make_refill_step(cfg, trash_row=0)
+    """strict and delta are ported (tests/test_torch_dp.py): on one replica,
+    without a group, their broadcasts are the identity and the step is the
+    'off' one. A mode that does not exist is refused, as by cdlrm_tpu."""
+    with pytest.raises(ValueError, match="unsupported refill_broadcast mode"):
+        tstep.make_refill_step(tstep.StepConfig(refill_broadcast="lazy"), trash_row=0)
+    cache0 = torch.arange(12.0).reshape(6, 2)
+    ins = (torch.tensor([1, 5], dtype=torch.int32), torch.ones(2, 2),
+           torch.tensor([1, 2], dtype=torch.int32))
+    want = tstep.make_refill_step(tstep.StepConfig(refill_broadcast="off"), 5)(
+        cache0.clone(), *ins)
+    for mode in ("strict", "delta", True, False):
+        got = tstep.make_refill_step(tstep.StepConfig(refill_broadcast=mode), 5)(
+            cache0.clone(), *ins)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -1,0 +1,445 @@
+"""Data-parallel test worker: one rank of an N-process gloo group of
+cdlrm_tpu_torch on the CPU.
+
+Launched by tests/test_torch_dp.py and tests/test_torch_dp_trainer.py::
+
+    python tests/torch_dp_worker.py RANK WORLD RENDEZVOUS_FILE SPEC.json OUT_DIR
+
+The ranks meet through the rendezvous file (never a fixed port: several test
+processes share one machine). ``SPEC.json`` holds a list of cases, each a
+dict with a ``name``, a ``kind`` (a function of :data:`KINDS`) and its
+arguments; every rank runs all of them in order on the one group and writes
+``OUT_DIR/<name>.r<RANK>.npz``. The inputs of every case are made here from
+numpy seeds, so the launching test makes the same ones for cdlrm_tpu by
+importing this module, which imports neither jax nor cdlrm_tpu.
+"""
+
+import json
+import os
+import sys
+import traceback
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from cdlrm_tpu_torch.data.synthetic import Batch  # noqa: E402
+
+T, D, DEN = 3, 8, 13
+STEP_LN_EMB = [64, 32, 128]
+
+
+# --------------------------------------------------------------------------
+# seeded inputs, shared with the launching tests
+# --------------------------------------------------------------------------
+
+
+class Stream:
+    """A seeded synthetic stream with a learnable target (y depends on the
+    first dense feature). ``skew`` draws ids from ``[0, skew)`` so lookups
+    repeat; ``pooled`` > 0 gives multi-hot bags of that width with random
+    masks (position 0 always valid)."""
+
+    m_den = DEN
+
+    def __init__(self, ln_emb, num_batches, batch, seed=0, pooled=0, skew=0):
+        self.ln_emb = np.asarray(ln_emb)
+        self.num_batches, self.batch, self.seed = num_batches, batch, seed
+        self.pooled, self.skew = pooled, skew
+
+    def __len__(self):
+        return self.num_batches
+
+    def batches(self):
+        rng = np.random.default_rng(self.seed)
+        t_count = len(self.ln_emb)
+        for _ in range(self.num_batches):
+            x = rng.random((self.batch, self.m_den)).astype(np.float32)
+            y = (x[:, :1] > 0.5).astype(np.float32)
+            shape = (self.batch, self.pooled) if self.pooled else (self.batch,)
+            ls = np.stack([rng.integers(0, min(n, self.skew) if self.skew else n, shape)
+                           for n in self.ln_emb])
+            if not self.pooled:
+                yield Batch(x, ls, None, y)
+                continue
+            mask = rng.random((t_count,) + shape) < 0.7
+            mask[:, :, 0] = True
+            yield Batch(x, ls, mask, y)
+
+
+def step_geometry(b_loc):
+    from cdlrm_tpu_torch.cache.geometry import CacheGeometry
+
+    return CacheGeometry.build(STEP_LN_EMB, D, 8, 2, aux_capacity=b_loc)
+
+
+def step_inputs(ndev, b_glob, seed=0):
+    """The inputs of one plain-wire train step, as tests/test_step.py makes
+    them: the dense parameters' generator state is the seed's, a random
+    cache (the same on every replica), a batch whose slots point at real
+    rows only, and an empty aux bucket of 8 rows per replica."""
+    geo = step_geometry(b_glob // ndev)
+    rng = np.random.default_rng(seed + 1000)
+    cache = rng.normal(size=(geo.total_rows, D)).astype(np.float32)
+    x = rng.random((b_glob, DEN)).astype(np.float32)
+    tgt = np.round(rng.random((b_glob, 1))).astype(np.float32)
+    slots = np.stack([
+        rng.integers(0, geo.ways * geo.sets[t], b_glob).astype(np.int32)
+        + geo.table_offsets[t].astype(np.int32) for t in range(T)
+    ])
+    return dict(cache=cache, x=x, tgt=tgt, slots=slots,
+                aux_slots=np.full(8, geo.trash_row, np.int32),
+                aux_rows=np.zeros((8, D), np.float32))
+
+
+def refill_inputs(ndev, seed=0):
+    """Replicas that differ (replica r holds base + r, its state base + r),
+    two inserts and two evictions, one slot in both lists."""
+    geo = step_geometry(2)
+    rng = np.random.default_rng(seed + 2000)
+    base = rng.normal(size=(geo.total_rows, D)).astype(np.float32)
+    acc = rng.random(geo.total_rows).astype(np.float32)
+    return dict(
+        caches=np.stack([base + r for r in range(ndev)]),
+        accs=np.stack([acc + r for r in range(ndev)]),
+        insert_slots=np.array([5, 6], np.int32),
+        insert_rows=np.full((2, D), 42.0, np.float32),
+        insert_acc=np.array([0.25, 0.5], np.float32),
+        evict_slots=np.array([5, 7], np.int32),
+    )
+
+
+def aggregate_inputs(ndev, seed=7, density=0.15):
+    """Random replicas, row-wise states and touched masks: rows touched by
+    no, one, several and all replicas; the trash row is never marked."""
+    geo = step_geometry(2)
+    rng = np.random.default_rng(seed)
+    caches = rng.normal(size=(ndev, geo.total_rows, D)).astype(np.float32)
+    accs = rng.random((ndev, geo.total_rows)).astype(np.float32)
+    tmask = rng.random((ndev, geo.total_rows)) < density
+    tmask[:, 3] = True    # by every replica
+    tmask[:, 4] = False   # by none
+    tmask[:, 9] = False
+    tmask[0, 9] = True    # by replica 0 alone
+    tmask[-1, 11] = True  # by the last one at least
+    tmask[:, geo.trash_row] = False
+    return dict(caches=caches, accs=accs, touched=tmask)
+
+
+def step_params():
+    """(ln_bot, ln_top) of the step tests' small model."""
+    return [DEN, 16, D], [T * (T + 1) // 2 + D, 8, 1]
+
+
+# --------------------------------------------------------------------------
+# the cases
+# --------------------------------------------------------------------------
+
+
+def _flat_params(params):
+    from cdlrm_tpu_torch.models.dlrm import param_leaves
+
+    return {f"param_{i}": p.detach().cpu().numpy() for i, p in enumerate(param_leaves(params))}
+
+
+def case_train_step(group, ndev, b_glob, seed=0, strict_bias=False, **_):
+    import torch
+
+    from cdlrm_tpu_torch.models.dlrm import init_dlrm
+    from cdlrm_tpu_torch.train import step as step_lib
+
+    geo = step_geometry(b_glob // ndev)
+    ln_bot, ln_top = step_params()
+    params = init_dlrm(np.random.default_rng(seed), ln_bot, ln_top, device=torch.device("cpu"))
+    inp = step_inputs(ndev, b_glob, seed)
+    b_loc, r = b_glob // ndev, group.rank
+    sl = slice(r * b_loc, (r + 1) * b_loc)
+    scfg = step_lib.StepConfig(loss_function="bce", strict_bias_divergence=strict_bias)
+    step = step_lib.make_cached_train_step(geo, scfg, group=group)
+    cache = torch.from_numpy(inp["cache"].copy())
+    touched = torch.zeros(geo.total_rows, dtype=torch.uint8)
+    slots = torch.from_numpy(np.ascontiguousarray(inp["slots"][:, sl]))
+    params, cache, loss, corr = step(
+        params, cache, torch.from_numpy(inp["x"][sl]), slots,
+        torch.zeros(slots.shape, dtype=torch.bool), torch.from_numpy(inp["aux_slots"]),
+        torch.from_numpy(inp["aux_rows"]), torch.from_numpy(inp["tgt"][sl]),
+        float(np.float32(0.1)), float(np.float32(0.3)), touched=touched,
+    )
+    return dict(cache=cache.numpy(), touched=touched.numpy(), loss=loss.numpy(),
+                correct=corr.numpy(), **_flat_params(params))
+
+
+def case_refill(group, ndev, mode, optimizer="sgd", master_state=False, bf16=False, **_):
+    import torch
+
+    from cdlrm_tpu_torch.train import step as step_lib
+
+    inp = refill_inputs(ndev)
+    geo = step_geometry(2)
+    scfg = step_lib.StepConfig(refill_broadcast=mode, optimizer=optimizer, dedup=True,
+                               adagrad_master_state=master_state, wire_rows_bf16=bf16)
+    refill = step_lib.make_refill_step(scfg, geo.trash_row, group=group)
+    cache = torch.from_numpy(inp["caches"][group.rank].copy())
+    rows = torch.from_numpy(inp["insert_rows"])
+    args = [torch.from_numpy(inp["insert_slots"]), rows.to(torch.bfloat16) if bf16 else rows,
+            torch.from_numpy(inp["evict_slots"])]
+    out = {}
+    if optimizer == "adagrad":
+        args.append(torch.from_numpy(inp["accs"][group.rank].copy()))
+        if master_state:
+            args.append(torch.from_numpy(inp["insert_acc"]))
+    res = refill(cache, *args)
+    out["cache"], out["evicted"] = res[0].numpy(), res[-2 if master_state else -1].float().numpy()
+    if optimizer == "adagrad":
+        out["accum"] = res[1].numpy()
+    if master_state:
+        out["ev_acc"] = res[-1].numpy()
+    return out
+
+
+def case_aggregate(group, ndev, op, bucket=None, optimizer="sgd", seed=7, density=0.15, **_):
+    import torch
+
+    from cdlrm_tpu_torch.train import step as step_lib
+
+    inp = aggregate_inputs(ndev, seed, density)
+    geo = step_geometry(2)
+    scfg = step_lib.StepConfig(table_agg_op=op, optimizer=optimizer, dedup=True)
+    if bucket == "union":  # an exactly full bucket
+        bucket = int(inp["touched"].any(axis=0).sum())
+    agg = step_lib.make_aggregate_step(scfg, group, union_bucket=bucket, trash_row=geo.trash_row)
+    cache = torch.from_numpy(inp["caches"][group.rank].copy())
+    touched = torch.from_numpy(inp["touched"][group.rank].astype(np.uint8))
+    args = [torch.from_numpy(inp["accs"][group.rank].copy())] if optimizer == "adagrad" else []
+    res = agg(cache, touched, *args)
+    out = dict(cache=res[0].numpy(), touched=res[1].numpy())
+    if args:
+        out["accum"] = res[2].numpy()
+    return out
+
+
+def make_cfg(config_cls, ln_emb, **kw):
+    """The trainer cases' config, for either package's ``Config`` class."""
+    base = dict(
+        arch_sparse_feature_size=8, arch_mlp_bot="13-16-8", arch_mlp_top="8-1",
+        mini_batch_size=32, world_size=2, cache_size=32, num_ways=4, loss_function="bce",
+        lookahead=4, table_agg_freq=2, print_freq=4, learning_rate=0.2, lr_embeds=0.2,
+        eviction_fifo_size=64, round_targets=True,
+    )
+    base.update(kw)
+    return config_cls(**base).finalize(ln_emb=np.asarray(ln_emb))
+
+
+def inline_writeback(tr):
+    """Apply each writeback where it is queued, so that a run whose refills
+    read back evicted rows or state is the same on every run."""
+    tr.eviction_manager.start = lambda: None
+    # close() queues a None to end the (never started) eviction thread
+    tr.eviction_fifo.put = lambda item: item is None or tr.eviction_manager._apply(item)
+
+
+def train_and_collect(tr, steps, evaluate=False, more_steps=0, save=None, to_numpy=np.asarray):
+    """Drive a cached trainer of either package: ``steps`` steps, an optional
+    save, ``more_steps`` further steps, an optional eval pass; returns what
+    the tests compare, as numpy arrays and plain values. The caller closes
+    the trainer."""
+    windows = []
+    tr._log_metrics = lambda kind, payload: windows.append((kind, dict(payload)))
+    tr.train(max_steps=steps, log_fn=lambda *_: None)
+    if save:
+        tr.save_checkpoint(save)
+    if more_steps:
+        tr.train(max_steps=steps + more_steps, log_fn=lambda *_: None)
+    out = {}
+    if evaluate:
+        acc, auc = tr.evaluate(log_fn=lambda *_: None)
+        out.update(eval_acc=acc, eval_auc=auc, eval_hits=tr.metrics.eval_hits,
+                   eval_lookups=tr.metrics.eval_lookups)
+    wins = [w for kind, w in windows if kind == "train_window"]
+    m = tr.metrics
+    out.update(
+        global_step=tr.global_step, refills=m.refills, hits=m.hits, lookups=m.lookups,
+        table_hits=np.asarray(m.table_hits), table_lookups=m.table_lookups,
+        win_loss=np.array([w["loss"] for w in wins]),
+        win_acc=np.array([w["accuracy"] for w in wins]),
+        win_hit_rate=np.array([w["hit_rate"] for w in wins]),
+        win_dedup=np.array([w["dedup"] for w in wins]),
+        step_keys=np.array(sorted(str(tuple(k)) for k in tr._step_cache)),
+        cursor=np.array(tr._cursor),
+    )
+    out["cache"] = to_numpy(tr.cache)
+    if tr.touched is not None:
+        out["touched"] = to_numpy(tr.touched).astype(bool)
+    if tr.embed_acc is not None:
+        out["embed_acc"] = to_numpy(tr.embed_acc)
+    return out
+
+
+def case_trainer(group, ln_emb, cfg, stream, steps, out_dir, test_stream=None, load=None,
+                 save=None, more_steps=0, inline=False, **_):
+    import torch
+
+    from cdlrm_tpu_torch.config import Config
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    cfg = make_cfg(Config, ln_emb, **cfg)
+    ds = Stream(ln_emb, **stream)
+    test_ds = Stream(ln_emb, **test_stream) if test_stream else None
+    tr = CachedDlrmTrainer(cfg, ds, test_ds, device="cpu", group=group)
+    try:
+        if inline:
+            inline_writeback(tr)
+        else:
+            tr.eviction_manager.start = lambda: None  # hold the writebacks
+        if load:
+            tr.load_checkpoint(os.path.join(out_dir, load))
+        out = train_and_collect(
+            tr, steps, evaluate=test_ds is not None, more_steps=more_steps,
+            save=os.path.join(out_dir, save) if save else None,
+            to_numpy=lambda t: t.detach().cpu().numpy(),
+        )
+        out.update(_flat_params(tr.params))
+        out["agg_bucket"] = -1 if tr._agg_bucket is None else tr._agg_bucket
+        if tr.dense_acc is not None:
+            out.update({"acc_" + k: v for k, v in _flat_params(tr.dense_acc).items()})
+        # the held writebacks, applied in order: the masters' final rows
+        assert tr.eviction_manager.flush()
+        if hasattr(tr.master, "tables"):
+            for t, table in enumerate(tr.master.tables):
+                out[f"master_{t}"] = np.asarray(table)
+        assert torch.distributed.get_world_size() == group.world_size
+        return out
+    finally:
+        tr.close()
+
+
+def case_fulltable(group, ln_emb, cfg, stream, steps, out_dir, test_stream=None, save=None,
+                   load=None, **_):
+    from cdlrm_tpu_torch.config import Config
+    from cdlrm_tpu_torch.models.embedding import emb_leaves
+    from cdlrm_tpu_torch.train.fulltable import FullTableDlrmTrainer
+
+    cfg = make_cfg(Config, ln_emb, use_cache=False, **cfg)
+    ds = Stream(ln_emb, **stream)
+    test_ds = Stream(ln_emb, **test_stream) if test_stream else None
+    tr = FullTableDlrmTrainer(cfg, ds, test_ds, device="cpu", group=group)
+    try:
+        if load:
+            tr.load_checkpoint(os.path.join(out_dir, load))
+        lines = []
+        tr.train(max_steps=steps, log_fn=lines.append)
+        out = dict(global_step=tr.global_step, lines=np.array(lines, dtype=str))
+        if save:
+            tr.save_checkpoint(os.path.join(out_dir, save))
+        if test_ds is not None:
+            out["eval_acc"], out["eval_auc"] = tr.evaluate(log_fn=lambda *_: None)
+        out.update(_flat_params(tr.params))
+        for i, leaf in enumerate(emb_leaves(tr.emb_tables())):
+            out[f"emb_{i}"] = leaf.detach().numpy()
+        if tr.emb_acc is not None:
+            for i, a in enumerate(tr.emb_tables(tr.emb_acc)):
+                out[f"embacc_{i}"] = a.numpy()
+        return out
+    finally:
+        tr.close()
+
+
+def case_fail(group, rank=1, **_):
+    """A rank that raises: the launcher must see its exit code."""
+    if group.rank == rank:
+        raise RuntimeError("this rank fails on purpose")
+    return {}
+
+
+def run_ranks(world, cases, out_dir, timeout=240.0):
+    """Launch ``world`` ranks of this script over ``cases`` and wait for
+    them. Returns ``load(name, rank)``, which reads a case's saved arrays.
+    A rank that exits with a non-zero code, or the time limit, ends the
+    others at once and raises with the ranks' output: no process stays
+    behind."""
+    import subprocess
+    import time
+
+    os.makedirs(out_dir, exist_ok=True)
+    spec = os.path.join(out_dir, f"spec_w{world}.json")
+    with open(spec, "w") as f:
+        json.dump(cases, f)
+    rdzv = os.path.join(out_dir, f"rdzv_w{world}")
+    logs = [open(os.path.join(out_dir, f"log_w{world}_r{r}.txt"), "w+") for r in range(world)]
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(r), str(world), rdzv, spec, out_dir],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        )
+        for r in range(world)
+    ]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        codes = [p.wait() for p in procs]
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read()[-4000:])
+            log.close()
+    if any(codes):
+        raise RuntimeError(
+            f"ranks exited with {codes} (a negative code: killed after another "
+            "rank failed or at the time limit)\n" + "\n".join(
+                f"--- rank {r} ---\n{t}" for r, t in enumerate(texts))
+        )
+
+    def load(name, rank):
+        with np.load(os.path.join(out_dir, f"{name}.r{rank}.npz")) as data:
+            return {k: data[k] for k in data.files}
+
+    return load
+
+
+KINDS = {
+    "train_step": case_train_step, "refill": case_refill, "aggregate": case_aggregate,
+    "trainer": case_trainer, "fulltable": case_fulltable, "fail": case_fail,
+}
+
+
+def main():
+    rank, world = int(sys.argv[1]), int(sys.argv[2])
+    rdzv, spec_path, out_dir = sys.argv[3:6]
+    import torch
+
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+
+    torch.set_num_threads(1)
+    with open(spec_path) as f:
+        cases = json.load(f)
+    group = make_dp_mesh(world, rank, init_method="file://" + rdzv, device="cpu",
+                         timeout_s=120)
+    assert group.backend == "gloo" and group.rank == rank
+    try:
+        for case in cases:
+            out = KINDS[case["kind"]](group, out_dir=out_dir, **case.get("args", {}))
+            np.savez(os.path.join(out_dir, f"{case['name']}.r{rank}.npz"), **out)
+    finally:
+        destroy_dp_mesh(group)
+    print(f"rank {rank}: {len(cases)} cases done")
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except BaseException:
+        traceback.print_exc()
+        # leave at once: another rank may be waiting in a collective, and a
+        # normal exit would wait for this process's threads
+        os._exit(1)
