@@ -12,6 +12,14 @@ cpu``) and exits non-zero if any of them fails; started by a launcher that
 sets ``RANK`` and ``WORLD_SIZE`` (and ``MASTER_ADDR``/``MASTER_PORT``), it
 joins as that rank.
 
+``--coordinator-address host:port`` runs multi-host mode
+(parallel/multihost.py): one process per card, each started by the user or
+a launcher on its machine, joins rank 0's ``host:port`` as rank
+``--host-id`` (or ``RANK``) of ``--num-hosts`` (or ``WORLD_SIZE``), which
+must equal ``--world-size``, and trains on ``cuda:LOCAL_RANK`` (``cuda:0``
+when it is unset), or on the CPU under ``--device cpu``. Each rank holds its
+row shard of the masters.
+
 Example (tiny, CPU-runnable):
   python -m cdlrm_tpu_torch.cli --device cpu --data-generation random \
     --arch-embedding-size 1000-500-2000 --arch-sparse-feature-size 16 \
@@ -132,6 +140,36 @@ def _run_rank(rank: int, world_size: int, argv, device_type: str, init_method: s
         destroy_dp_mesh(group)
 
 
+def _run_multihost(cfg: Config, device_type: str) -> int:
+    """One rank of a multi-host run (cdlrm_tpu/cli.py:73-83): check the host
+    fields against the world size, join the group through the coordinator,
+    set ``num_hosts`` and ``host_id`` to the group's (the bin loader's
+    ``--data-host-slice`` reads them), train, leave the group."""
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+    from cdlrm_tpu_torch.parallel.multihost import check_hosts, initialize_distributed
+
+    world = cfg.world_size
+    # -1: from the environment, as a launcher sets it
+    check_hosts(cfg.num_hosts if cfg.num_hosts > 0 else int(os.environ.get("WORLD_SIZE", world)),
+                cfg.host_id, world)
+    if device_type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+    pid, nproc = initialize_distributed(
+        cfg.coordinator_address, world, cfg.host_id if cfg.host_id >= 0 else None,
+        device=device,
+    )
+    print(f"[multihost] process {pid}/{nproc} initialized")
+    cfg.num_hosts, cfg.host_id = nproc, pid
+    group = make_dp_mesh(nproc, pid, device=device)
+    try:
+        return _run(cfg, device, group)
+    finally:
+        destroy_dp_mesh(group)
+
+
 def main(argv=None) -> int:
     dev_parser = argparse.ArgumentParser(add_help=False)
     dev_parser.add_argument(
@@ -142,6 +180,8 @@ def main(argv=None) -> int:
     cfg = config_from_args(rest)
     if ns.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (use --device cpu)")
+    if cfg.coordinator_address:
+        return _run_multihost(cfg, ns.device)
     world = cfg.world_size
     if world <= 1:
         return _run(cfg, torch.device(ns.device))

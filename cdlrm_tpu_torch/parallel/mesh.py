@@ -10,8 +10,9 @@ every batch. What cdlrm_tpu keeps as one flat ``[ndev*R, ...]`` array is
 simply the rank's own ``[R, ...]`` tensor. So this module is a small
 process-group helper, not a sharding library: :class:`DpGroup` carries the
 rank, the world size and the group, and offers the three collectives the
-steps use on device tensors (sum, max, broadcast from rank 0) plus the host
-gather the checkpoint needs.
+steps use on device tensors (sum, max, broadcast from rank 0) plus two host
+gathers: to rank 0 for the checkpoint, and to every rank for the multi-host
+row exchanges (parallel/multihost.py).
 
 The backend is explicit, never found by catching a failure: ``nccl`` when
 each rank has its own CUDA device, ``gloo`` for CPU tensors, and ``gloo``
@@ -95,6 +96,20 @@ class DpGroup:
         if out is None:
             return None
         return [t.numpy().view(np.bool_) if as_bool else t.numpy() for t in out]
+
+    def all_gather_host(self, block: np.ndarray) -> np.ndarray:
+        """Every rank's equal-shaped numpy ``block``, stacked ``[world, ...]``
+        in rank order, on every rank (cdlrm_tpu's
+        ``multihost_utils.process_allgather``). The blocks travel over the
+        host group as CPU tensors; with one rank it is ``block[None]``."""
+        if self.single:
+            return np.ascontiguousarray(block)[None]
+        as_bool = block.dtype == np.bool_
+        src = torch.from_numpy(np.ascontiguousarray(block.view(np.uint8) if as_bool else block))
+        out = torch.empty((self.world_size,) + tuple(src.shape), dtype=src.dtype)
+        dist.all_gather(list(out.unbind(0)), src, group=self.host_group)
+        got = out.numpy()
+        return got.view(np.bool_) if as_bool else got
 
     def barrier(self) -> None:
         if not self.single:

@@ -25,8 +25,10 @@ the tables, feeds its slice of each batch, and applies the mean over the
 ranks of the dense and the embedding gradients (fully synchronous data
 parallelism, one collective a step); eval scores each rank's slice and
 brings the scores together; rank 0 prints and writes the checkpoint.
-Refused at construction (``_check_fulltable``): multi-host runs (ROADMAP.md
-queue 1).
+Multi-host runs are refused, as cdlrm_tpu refuses them
+(cdlrm_tpu/train/fulltable.py:33-36): the full tables are one process's,
+and row-sharded masters are the cached trainer's. With a coordinator and one
+rank it trains on one device.
 """
 
 from __future__ import annotations
@@ -51,19 +53,6 @@ from cdlrm_tpu_torch.train.trainer import (
 )
 
 
-def _check_fulltable(cfg: Config) -> None:
-    """Refuse the config fields this trainer does not implement yet."""
-    unsupported = {
-        "coordinator_address (multi-host)": bool(cfg.coordinator_address),
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise ValueError(
-            "cdlrm_tpu_torch's full-table trainer does not implement "
-            + ", ".join(bad) + " yet (ROADMAP.md queue 1)"
-        )
-
-
 class FullTableDlrmTrainer:
     """DLRM with the full tables on one device, or one rank of a
     data-parallel run: training and serving."""
@@ -74,11 +63,15 @@ class FullTableDlrmTrainer:
             raise ValueError(
                 "call cdlrm_tpu_torch.config.finalize(cfg) (or build_dataset) first"
             )
-        _check_fulltable(cfg)
         # this rank's DpGroup; by default the joined process group, and none
         # on one replica (parallel/mesh.py::make_dp_mesh)
         self.group = group if group is not None else make_dp_mesh(cfg.world_size)
         self.ndev = self.group.world_size
+        if cfg.coordinator_address and self.ndev > 1:
+            raise ValueError(
+                "FullTableDlrmTrainer is single-process; multi-host runs use the "
+                "cached trainer (use_cache=True) with row-sharded masters"
+            )
         if self.ndev != cfg.world_size:
             raise ValueError(
                 f"the group has {self.ndev} ranks, config world_size={cfg.world_size}"

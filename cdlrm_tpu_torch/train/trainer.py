@@ -39,6 +39,18 @@ the scores together, and rank 0 alone prints, logs and writes the
 checkpoint. Every collective is called by the train thread, in the same
 order on every rank.
 
+Multi-host (``coordinator_address`` set and more than one rank; cdlrm_tpu's
+``jax.process_count() > 1``): a rank is cdlrm_tpu's host. Its masters are
+its row shard (parallel/multihost.py), so N ranks hold one copy of the
+masters between them instead of N. The prefetcher gathers owned rows, one
+all-gather per window gives every rank the window's full rows, which serve
+the window's train misses; the next window's exchange, plan join and copies
+run after the first block of each window (the refill prestage), eval misses
+are fetched from their owners by a routed exchange on the train thread, and
+every rank writes its own checkpoint files beside rank 0's shared ones.
+Evicted rows still reach every rank through the refill's broadcast, and each
+writes back the rows it owns.
+
 Ordering on the card: every step, refill and staging copy runs on the
 device's default stream, and the host-to-device copies of the pipeline and
 stager threads are synchronous (pageable memory), so each batch's and each
@@ -80,7 +92,10 @@ from cdlrm_tpu_torch.models.dlrm import (
 )
 from cdlrm_tpu_torch.models.tricks import xavier_uniform
 from cdlrm_tpu_torch.parallel.mesh import DpGroup, local_batch_rows, make_dp_mesh
-from cdlrm_tpu_torch.parallel.multihost import RowShard, ShardedMasterTables
+from cdlrm_tpu_torch.parallel.multihost import (
+    CollectingMaster, GlobalRowExchange, RowShard, ShardedMasterTables, WindowRowStore,
+    check_hosts, exchange_window_rows,
+)
 from cdlrm_tpu_torch.train import step as step_lib
 
 # checkpoint layout versions this loader reads (cdlrm_tpu save_checkpoint)
@@ -100,8 +115,7 @@ def use_device(device: torch.device) -> None:
 
 @dataclass
 class TrainMetrics:
-    """cdlrm_tpu's TrainMetrics (trainer.py:67-99) without the multi-host
-    fields."""
+    """cdlrm_tpu's TrainMetrics (trainer.py:67-99)."""
 
     steps: int = 0
     examples: int = 0
@@ -316,7 +330,6 @@ def _check_slice(cfg: Config) -> None:
     """Refuse the config fields this port does not implement yet, rather
     than ignore them (ROADMAP.md queue 1 names where each comes)."""
     unsupported = {
-        "coordinator_address (multi-host)": bool(cfg.coordinator_address),
         "hot_tier_rows > 0 (hot tier)": cfg.hot_tier_rows > 0,
         "sorted_dedup_wire": cfg.sorted_dedup_wire,
     }
@@ -359,6 +372,13 @@ class CachedDlrmTrainer:
             raise ValueError(
                 f"the group has {self.ndev} ranks, config world_size={cfg.world_size}"
             )
+        # multi-host (parallel/multihost.py): a coordinator and more than one
+        # rank, where cdlrm_tpu has more than one process (trainer.py:250).
+        # A rank is cdlrm_tpu's host: it owns RowShard(rank, world) of the
+        # masters. One rank with a coordinator trains on one device
+        self.multihost = bool(cfg.coordinator_address) and self.ndev > 1
+        if self.multihost:
+            check_hosts(cfg.num_hosts, cfg.host_id, self.ndev, self.group.rank)
         if self.ndev > 1 and cfg.refill_broadcast in (False, "off"):
             # every rank writes evicted rows back to masters of its own: only
             # rank 0's values, broadcast at the refill, keep them equal
@@ -399,21 +419,27 @@ class CachedDlrmTrainer:
         # weights, then the mixed-dimension projections: the same seed gives
         # both packages the same values
         rng = np.random.default_rng(cfg.numpy_rand_seed)
+        shard = RowShard(self.group.rank, self.ndev) if self.multihost else RowShard(0, 1)
         if cfg.md_flag:
             # cached mixed-dimension tables (cdlrm_tpu trainer.py:295-315):
             # compact [n_t, d_t] masters that put zero-padded [., m_spa] rows
             # on the wire; the cache stays [R, m_spa]
-            if cfg.master_init == "virtual":
-                # procedural compact masters: one whole shard, so that the
-                # values match any multi-host topology's
+            if self.multihost or cfg.master_init == "virtual":
+                # procedural compact masters, this rank's shard of them (one
+                # whole shard on one host), so that the values match any
+                # multi-host topology's
                 self.master = ShardedMasterTables(
-                    cfg.ln_emb, cfg.m_spa, RowShard(0, 1), rng, dims=cfg.m_spa_per_table,
+                    cfg.ln_emb, cfg.m_spa, shard, rng, dims=cfg.m_spa_per_table,
                 )
             else:
                 self.master = MDMasterTables(
                     cfg.ln_emb, cfg.m_spa_per_table, cfg.m_spa, rng,
                     mmap_dir=cfg.master_mmap_dir or None,
                 )
+        elif self.multihost:
+            # row-sharded masters with procedural values, the same for any
+            # rank count; master_init is ignored, as in cdlrm_tpu
+            self.master = ShardedMasterTables(cfg.ln_emb, cfg.m_spa, shard, rng)
         elif cfg.master_init == "virtual":
             self.master = VirtualMasterTables(cfg.ln_emb, cfg.m_spa, rng)
         else:
@@ -469,11 +495,16 @@ class CachedDlrmTrainer:
                                          device=self.device)
             self.dense_acc = map_params(torch.zeros_like, self.params)
         # adagrad_master_state: evicted ids' row-wise state writes back to
-        # this host store with their rows, and inserted ids resume it
+        # this host store with their rows, and inserted ids resume it.
+        # Multi-host: sharded as the masters are; the resume values of rows
+        # this rank does not own come with the window exchange, joined from
+        # _mh_window_accs
         self._acc_master = (
-            AccumulatorStore(cfg.ln_emb) if self._adagrad and cfg.adagrad_master_state
-            else None
+            AccumulatorStore(cfg.ln_emb,
+                             owned_ranges=self.master.ranges if self.multihost else None)
+            if self._adagrad and cfg.adagrad_master_state else None
         )
+        self._mh_window_accs: Optional[WindowRowStore] = None
         self._ckpt_writer = CheckpointWriter(self.device)
 
         # wire choice per window (cdlrm_tpu trainer.py:446-460): 'on' always
@@ -563,6 +594,24 @@ class CachedDlrmTrainer:
             acc_store=self._acc_master,
         )
         self.prefetcher: Optional[LookaheadPrefetcher] = None
+        # multi-host: the current window's exchanged rows, which serve its
+        # train misses, and the routed exchange of eval misses. Its capacity
+        # is the operand shape of an all-gather, so the same on every rank
+        # (cdlrm_tpu trainer.py:636-649)
+        self._window_store: Optional[WindowRowStore] = None
+        self._row_exchange = (
+            GlobalRowExchange(
+                self.master,
+                capacity=len(cfg.ln_emb) * test_b_loc * max(1, pooled_width) * self.ndev,
+                group=self.group,
+            )
+            if self.multihost else None
+        )
+        # multi-host refill prestages so far (_prefetch_next_window)
+        self.mh_prefetches = 0
+        self._mh_prestage = False
+        self._mh_pending: Optional[tuple] = None
+        self._mh_want_prefetch = False
         self._pipeline_started = False
         self._pipe = None
         self._stager = None
@@ -698,13 +747,70 @@ class CachedDlrmTrainer:
         """Add the resume accumulators to a staged operand tuple, on the
         train thread: the eviction fence, then the store gather (cdlrm_tpu
         trainer.py:837-851). The fence also quiesces the writer, so the
-        unlocked gather reads stable arrays. No-op without
+        unlocked gather reads stable arrays. Multi-host: joined from the
+        window's exchanged accumulators, whose fence ran before this rank
+        gave its owned slice (:meth:`_exchange_window`). No-op without
         ``adagrad_master_state`` or when the operand already rides."""
         if self._acc_master is None or len(d_inputs) == 4:
             return d_inputs
-        self.eviction_manager.flush()
-        acc = self._acc_master.gather(plan.insert_tables, plan.insert_ids)
+        if self.multihost:
+            acc = self._join_window_accs(plan.insert_tables, plan.insert_ids)
+        else:
+            self.eviction_manager.flush()
+            acc = self._acc_master.gather(plan.insert_tables, plan.insert_ids)
         return tuple(d_inputs) + (self._to_device(pad_to_bucket(acc, 0.0)),)
+
+    def _exchange_window(self, window_uniques, owned_rows):
+        """The multi-host window-row exchange (cdlrm_tpu trainer.py:800-825):
+        one all-gather of every rank's owned rows of the window. With
+        ``adagrad_master_state`` each rank's owned accumulators ride the same
+        all-gather as one more column, after the eviction fence (an id
+        evicted at one boundary can come back at the next, and its state must
+        include every writeback queued before); the full window's
+        accumulators are kept for :meth:`_join_window_accs`. Called by the
+        train thread only, at points that are the same on every rank."""
+        if self._acc_master is None:
+            return exchange_window_rows(self.master, window_uniques, owned_rows,
+                                        group=self.group)
+        self.eviction_manager.flush()
+        owned_accs = [self._acc_master.gather_owned_slice(t, window_uniques[t])
+                      for t in range(len(window_uniques))]
+        rows, accs = exchange_window_rows(self.master, window_uniques, owned_rows, owned_accs,
+                                          group=self.group)
+        # the store's searchsorted join and membership check serve the 1-D
+        # accumulators as they serve the rows
+        self._mh_window_accs = WindowRowStore(window_uniques, accs)
+        return rows
+
+    def _join_window_accs(self, tables: np.ndarray, ids: np.ndarray) -> np.ndarray:
+        """Resume accumulators for an insert list, from the current window's
+        exchanged ones (inserted ids are window uniques by construction)."""
+        out = np.empty(ids.size, np.float32)
+        for t in np.unique(tables):
+            sel = tables == t
+            out[sel] = self._mh_window_accs.gather(int(t), ids[sel])
+        return out
+
+    def _prefetch_next_window(self) -> None:
+        """Multi-host refill prestage (cdlrm_tpu trainer.py:853-882): the next
+        boundary's host half, one window early. Pops the next window while
+        this one trains, exchanges its rows, joins its insert plan and copies
+        the padded operands to the device. Called by the train loop after the
+        first block of each window: a point that is the same on every rank,
+        so the all-gather keeps the ranks' collective order, which the
+        threaded _WindowStager could not. The occupancy replay stays at the
+        boundary."""
+        window = self.prefetcher.get_window()
+        if window is None:
+            self._mh_pending = (None, None, None)
+            return
+        rows = self._exchange_window(window.uniques, window.rows)
+        staged = None
+        if window.plan_spec is not None:
+            plan = build_insert_plan(window.plan_spec, rows, self.geo.dim)
+            staged = (plan, self._refill_device_inputs(plan))
+        self._mh_pending = (window, rows, staged)
+        self.mh_prefetches += 1
 
     def _run_refill(self, d_inputs):
         """The refill step in this trainer's form (SGD, AdaGrad, master
@@ -757,12 +863,20 @@ class CachedDlrmTrainer:
 
         return fetch
 
-    def _apply_refill(self, window: WindowData, staged=None) -> None:
-        """Refill at a window boundary (cdlrm_tpu trainer.py:884-969, one
-        host): replay the shadow-planned occupancy change, run the refill
-        step (evicted rows, and with ``adagrad_master_state`` their state,
-        are gathered before the insert), and queue them for writeback."""
+    def _apply_refill(self, window: WindowData, staged=None, rows_exchanged=None) -> None:
+        """Refill at a window boundary (cdlrm_tpu trainer.py:884-969): replay
+        the shadow-planned occupancy change, run the refill step (evicted
+        rows, and with ``adagrad_master_state`` their state, are gathered
+        before the insert), and queue them for writeback. Multi-host: the
+        window's owned rows are exchanged first (or were, by the prestage:
+        ``rows_exchanged``), and the full rows serve the window's train
+        misses."""
         t0 = time.perf_counter()
+        rows = window.rows
+        if self.multihost:
+            rows = (rows_exchanged if rows_exchanged is not None
+                    else self._exchange_window(window.uniques, rows))
+            self._window_store = WindowRowStore(window.uniques, rows)
         if staged is not None:
             # prestaged by the _WindowStager: plan joined, operands on the
             # device; the occupancy replay and, with adagrad_master_state,
@@ -772,10 +886,10 @@ class CachedDlrmTrainer:
             self.controller.apply_plan_spec(window.plan_spec)
         else:
             if window.plan_spec is not None:
-                plan = build_insert_plan(window.plan_spec, window.rows, self.geo.dim)
+                plan = build_insert_plan(window.plan_spec, rows, self.geo.dim)
                 self.controller.apply_plan_spec(window.plan_spec)
             else:
-                plan = self.controller.plan_insert(window.uniques, window.rows)
+                plan = self.controller.plan_insert(window.uniques, rows)
             d_inputs = self._refill_device_inputs(plan)
         self._apply_window_stats(window)
         evicted, ev_acc = self._run_refill(d_inputs)
@@ -889,9 +1003,21 @@ class CachedDlrmTrainer:
         rh.train[:] = 0
         rh.eval_hits = 0
 
-    def _probe(self, batch: Batch, probe):
+    def _train_master(self):
+        """Where a training batch's misses come from: the masters, or in
+        multi-host mode the current window's exchanged rows, which hold every
+        id of the window's batches (cdlrm_tpu trainer.py:1117-1121)."""
+        if not self.multihost:
+            return self.master
+        if self._window_store is None:
+            raise RuntimeError("multi-host probe before the first refill")
+        return self._window_store
+
+    def _probe(self, batch: Batch, probe, master=None):
         """Run a host probe over one batch (pooled bags flattened, masked
-        positions invalid)."""
+        positions invalid), its misses gathered from ``master``, by default
+        the masters."""
+        master = self.master if master is None else master
         ls_i, mask = batch.ls_i, batch.ls_mask
         t_count = ls_i.shape[0]
         if mask is not None:
@@ -902,9 +1028,8 @@ class CachedDlrmTrainer:
         elif self.pooled_width:
             raise ValueError("trainer built for pooled batches, got single-index")
         if mask is None:
-            return probe(ls_i, self.master)
-        return probe(ls_i.reshape(t_count, -1), self.master,
-                     valid=mask.reshape(t_count, -1))
+            return probe(ls_i, master)
+        return probe(ls_i.reshape(t_count, -1), master, valid=mask.reshape(t_count, -1))
 
     def _stage_batch(self, batch: Batch, wire: tuple, aux: tuple, train: bool) -> tuple:
         """Copy one batch's step inputs to the device, in the step's argument
@@ -932,7 +1057,7 @@ class CachedDlrmTrainer:
             return self._assemble_dedup(batch)
         lookups = self._num_lookups(batch)
         batch = self._local(batch)
-        pr = self._probe(batch, self._probe_fn)
+        pr = self._probe(batch, self._probe_fn, self._train_master())
         stats = _ProbeStats(batch.ls_i.shape[0])
         stats.add(pr.hit_counts, lookups)
         aux = self._pack_aux(pr.aux_slots, pr.aux_rows, "train")
@@ -954,7 +1079,7 @@ class CachedDlrmTrainer:
             probe = self.controller.probe_dedup_raw
         lookups = self._num_lookups(batch)
         batch = self._local(batch)
-        dr = self._probe(batch, probe)
+        dr = self._probe(batch, probe, self._train_master())
         stats = _ProbeStats(batch.ls_i.shape[0])
         stats.add(dr.hit_counts, lookups)
         u, cnt = dr.uniq, dr.uniq_counts
@@ -1019,10 +1144,14 @@ class CachedDlrmTrainer:
             skip_first_plan=(j0 % cfg.lookahead != 0),
         )
         self.prefetcher.start()
+        # refill prestage: a thread on one host; multi-host, the train loop
+        # itself, since the window's rows need an all-gather in the ranks'
+        # common collective order (_prefetch_next_window)
         self._stager = None
-        if cfg.refill_prestage:
+        if cfg.refill_prestage and not self.multihost:
             self._stager = _WindowStager(self)
             self._stager.start()
+        self._mh_prestage = cfg.refill_prestage and self.multihost
         self._pipe = AssemblyPipeline(
             self, cfg.nepochs, cfg.lookahead, max(1, cfg.pipeline_depth),
             start_epoch=epoch0, start_j=j0,
@@ -1192,7 +1321,7 @@ class CachedDlrmTrainer:
                 "steps": m.steps,
                 "dedup": self._dedup,  # wire of the current window
                 # multi-host refill prestage hoists so far (one host: none)
-                "mh_prefetches": 0,
+                "mh_prefetches": self.mh_prefetches,
             }
             log_fn(
                 f"Step {j}: {ms_it:.2f} ms/it, caching overhead "
@@ -1315,23 +1444,38 @@ class CachedDlrmTrainer:
                 items.append(item)
             if items:
                 run_block(items)
+                if self._mh_want_prefetch:
+                    # the first block of this window is dispatched: the
+                    # point, the same on every rank, where the next window's
+                    # exchange, plan join and copies run
+                    self._mh_want_prefetch = False
+                    self._prefetch_next_window()
             if stream_end:
                 self._stream_done = True
                 break
             if boundary is not None:
+                rows_ex = None
                 if self._stager is not None:
                     popped = self._stager.get()
                     window, staged = popped if popped else (None, None)
+                elif self._mh_pending is not None:
+                    window, rows_ex, staged = self._mh_pending
+                    self._mh_pending = None
                 else:
                     window, staged = self.prefetcher.get_window(), None
                 if window is None:
                     break
+                self._mh_want_prefetch = self._mh_prestage
                 if boundary is WINDOW_REPLAY:
                     # mid-window resume: the checkpointed occupancy and RNG
-                    # already hold this window's insert plan
+                    # already hold this window's insert plan; multi-host, the
+                    # window's rows are exchanged again to serve its misses
+                    if self.multihost:
+                        rows = self._exchange_window(window.uniques, window.rows)
+                        self._window_store = WindowRowStore(window.uniques, rows)
                     self._apply_window_stats(window)
                 else:
-                    self._apply_refill(window, staged)
+                    self._apply_refill(window, staged, rows_exchanged=rows_ex)
                 wire_dedup = None
                 pipe.notify_refill_applied()
         flush_pending()
@@ -1352,20 +1496,32 @@ class CachedDlrmTrainer:
     def _probe_eval(self, batch: Batch):
         """Host half of eval assembly: probe this rank's slice of the
         (padded) batch against the occupancy and gather its miss rows from
-        the masters."""
+        the masters. Multi-host, the misses may lie outside any window: a
+        :class:`CollectingMaster` records them for :meth:`_stage_eval`'s
+        exchange and the rows stay zero until then (cdlrm_tpu
+        trainer.py:1398-1421)."""
         self.metrics.eval_lookups += self._num_lookups(batch)
         batch = self._local(batch)
-        pr = self._probe(batch, self._probe_fn)
+        collector = CollectingMaster(self.geo.dim) if self.multihost else None
+        pr = self._probe(batch, self._probe_fn, collector)
         if self._rank_hits is not None:
             self._rank_hits.eval_hits += int(pr.hit_counts.sum())
         else:
             self.metrics.eval_hits += int(pr.hit_counts.sum())
-        return batch, pr.slots, pr.aux_slots, pr.aux_rows
+        return batch, pr.slots, pr.aux_slots, pr.aux_rows, collector
 
     def _stage_eval(self, probed):
         """Device half of eval assembly: pad the miss rows and copy the eval
-        step's inputs to the device (x, slots, mask, aux_slots, aux_rows)."""
-        batch, slots, aux_slots, aux_rows = probed
+        step's inputs to the device (x, slots, mask, aux_slots, aux_rows).
+        Multi-host, the recorded misses are fetched from their owners first:
+        one routed exchange a batch on every rank, even with no misses of its
+        own, so it runs on the train thread in batch order (cdlrm_tpu
+        trainer.py:1444-1466)."""
+        batch, slots, aux_slots, aux_rows, collector = probed
+        if collector is not None:
+            fetched = self._row_exchange.fetch(collector.requests)
+            if fetched:
+                aux_rows = np.concatenate(fetched)
         aux = self._pack_aux(aux_slots, aux_rows, "eval")
         return self._stage_batch(batch, (slots,), aux, train=False)
 
@@ -1385,7 +1541,9 @@ class CachedDlrmTrainer:
         padded to ``world_size * tb_loc`` rows, each rank scores its slice
         with its own cache replica, and the scores come together in rank
         order on every rank (one collective a batch, on this thread), so
-        every rank computes the same accuracy and AUC."""
+        every rank computes the same accuracy and AUC. Multi-host, the
+        producer only probes, and the train thread stages each batch, whose
+        miss exchange is a collective (:meth:`_stage_eval`)."""
         cfg = self.cfg
         use_device(self.device)
         if self.group.rank != 0:
@@ -1408,7 +1566,11 @@ class CachedDlrmTrainer:
                     if stop.is_set():
                         return
                     n = batch.x.shape[0]
-                    item = (n, batch.y, self._stage_eval(self._probe_eval(_pad_batch(batch, tb))))
+                    probed = self._probe_eval(_pad_batch(batch, tb))
+                    if self.multihost:
+                        item = (n, batch.y, None, probed)
+                    else:
+                        item = (n, batch.y, self._stage_eval(probed), None)
                     while not stop.is_set():
                         try:
                             out.put(item, timeout=0.1)
@@ -1442,7 +1604,9 @@ class CachedDlrmTrainer:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                n, y, inputs = item
+                n, y, inputs, probed = item
+                if inputs is None:
+                    inputs = self._stage_eval(probed)
                 self.cache, scores = self.eval_step(self.params, self.cache, *inputs)
                 scores = self.group.gather_batch_rows(scores)
                 scores_host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=on_cuda)
@@ -1530,11 +1694,22 @@ class CachedDlrmTrainer:
         barrier after a synchronous write keeps a rank from loading files
         that are not there yet; under ``checkpoint_async`` the gather alone
         keeps the ranks in step and rank 0's next save, load or close joins
-        the writer."""
+        the writer.
+
+        Multi-host (cdlrm_tpu trainer.py:2275-2385), into one shared
+        directory: every rank writes its own files, tagged ``.h{rank}``:
+        ``cache``, ``touched`` and ``embed_acc`` (``[R, ...]``, its own
+        replica), ``acc_store`` and ``master`` (its owned shard); rank 0
+        alone writes the dense parameters and accumulators, the occupancy and
+        the meta. A synchronous save ends with a barrier, so no rank returns
+        before every rank's files exist; an asynchronous one has no
+        collective at all (its writer finishes off the train thread), and a
+        rank that loads the directory must learn of the writes another way."""
         self._ckpt_writer.join()
         use_device(self.device)
         rank0 = self.group.rank == 0
-        if rank0:
+        tag = f".h{self.group.rank}" if self.multihost else ""
+        if rank0 or self.multihost:
             os.makedirs(path, exist_ok=True)
         if not self.eviction_manager.flush(timeout=self.cfg.eviction_fifo_timeout):
             raise RuntimeError(
@@ -1565,37 +1740,45 @@ class CachedDlrmTrainer:
 
         touched = (np.zeros(self.geo.total_rows, dtype=bool) if self.touched is None
                    else host(self.touched).astype(bool))
-        state = [("cache.npy", blocks(host(self.cache))), ("touched.npy", blocks(touched))]
-        if self._adagrad:
-            state.append(("embed_acc.npy", blocks(host(self.embed_acc))))
-        if not rank0:
-            # the files are rank 0's; this rank leaves when they are written
-            if not self.cfg.checkpoint_async:
-                self.group.barrier()
-            return
+        if self.multihost:
+            # this rank's own replica, in files of its own
+            state = [(f"cache{tag}.npy", host(self.cache)), (f"touched{tag}.npy", touched)]
+            if self._adagrad:
+                state.append((f"embed_acc{tag}.npy", host(self.embed_acc)))
+        else:
+            state = [("cache.npy", blocks(host(self.cache))), ("touched.npy", blocks(touched))]
+            if self._adagrad:
+                state.append(("embed_acc.npy", blocks(host(self.embed_acc))))
+            if not rank0:
+                # the files are rank 0's; this rank leaves when they are written
+                if not self.cfg.checkpoint_async:
+                    self.group.barrier()
+                return
         for name, arr in state:
             npy(name, arr)
         if self._acc_master is not None:
-            # the store's nonzero support; payload() copies
-            npz("acc_store.npz", self._acc_master.payload())
+            # the store's nonzero support (multi-host: of the owned rows);
+            # payload() copies
+            npz(f"acc_store{tag}.npz", self._acc_master.payload())
         if self.cfg.checkpoint_masters == "dirty" and hasattr(self.master, "dirty_payload"):
             # the dirty rows copied now: writebacks may resume meanwhile
-            npz("master.npz", self.master.dirty_payload(self._init_token()))
+            npz(f"master{tag}.npz", self.master.dirty_payload(self._init_token()))
         else:
             # the full dump has no snapshot form: written here
-            self.master.save(os.path.join(path, "master.npz"))
-        npz("dense_params.npz", leaves(self.params))
-        if self._adagrad:
-            npz("dense_acc.npz", leaves(self.dense_acc))
-        # state_dict returns the live occupancy arrays
-        npz("occupancy.npz", {k: np.copy(v) for k, v in self.controller.state_dict().items()})
-        meta = {
-            "format_version": CHECKPOINT_FORMAT_VERSION,
-            "global_step": self.global_step,
-            "rng_state": self.controller.rng.bit_generator.state,
-            "cursor": self._cursor,
-        }
-        writes.append((_write_pickle, os.path.join(path, "meta.pkl"), meta))
+            self.master.save(os.path.join(path, f"master{tag}.npz"))
+        if rank0:
+            npz("dense_params.npz", leaves(self.params))
+            if self._adagrad:
+                npz("dense_acc.npz", leaves(self.dense_acc))
+            # state_dict returns the live occupancy arrays
+            npz("occupancy.npz", {k: np.copy(v) for k, v in self.controller.state_dict().items()})
+            meta = {
+                "format_version": CHECKPOINT_FORMAT_VERSION,
+                "global_step": self.global_step,
+                "rng_state": self.controller.rng.bit_generator.state,
+                "cursor": self._cursor,
+            }
+            writes.append((_write_pickle, os.path.join(path, "meta.pkl"), meta))
         self._ckpt_writer.run(writes, background=self.cfg.checkpoint_async)
         if not self.cfg.checkpoint_async:
             self.group.barrier()
@@ -1606,7 +1789,9 @@ class CachedDlrmTrainer:
         AdaGrad state) and its data cursor, so that training resumes where
         it stopped. Every rank reads the one file set and takes block
         ``rank`` of ``cache.npy``, ``touched.npy`` and ``embed_acc.npy``; the
-        saved ``world_size`` must be this run's. It raises cdlrm_tpu's errors (trainer.py:2425-2469) when
+        saved ``world_size`` must be this run's. Multi-host, every rank reads
+        its own ``.h{rank}`` files, and the master shard's identity is
+        checked (``ShardedMasterTables._check_shard_identity``). It raises cdlrm_tpu's errors (trainer.py:2425-2469) when
         the checkpoint's optimizer state does not fit this run: AdaGrad state
         under an SGD training run (``--inference-only`` loads it: serving
         never reads it), no AdaGrad state under AdaGrad, no accumulator
@@ -1638,17 +1823,21 @@ class CachedDlrmTrainer:
             leaves = [data[f"leaf_{i}"] for i in range(n_leaves)]
         self.params = params_from_jax(leaves, n_bot=n_bot, device=self.device, md_proj=md)
         rows, dim = self.cache.shape
-        cache0 = np.load(os.path.join(path, "cache.npy"), mmap_mode="r")
-        if cache0.shape != (self.ndev * rows, dim):
+        # multi-host: this rank's own files, one replica each
+        tag = f".h{self.group.rank}" if self.multihost else ""
+        blocks = 1 if self.multihost else self.ndev
+        cache0 = np.load(os.path.join(path, f"cache{tag}.npy"), mmap_mode="r")
+        if cache0.shape != (blocks * rows, dim):
             same_geometry = cache0.shape[0] % rows == 0 and cache0.shape[1] == dim
             raise ValueError(
-                f"checkpoint cache {cache0.shape} != {self.ndev} replicas of this "
+                f"checkpoint cache {cache0.shape} != {blocks} replicas of this "
                 f"geometry's {(rows, dim)}: saved with world_size="
                 f"{cache0.shape[0] // rows if same_geometry else '?'}, "
                 f"this run has world_size={self.ndev}"
             )
-        mine = slice(self.group.rank * rows, (self.group.rank + 1) * rows)
-        acc_path = os.path.join(path, "embed_acc.npy")
+        mine = slice(0, rows) if self.multihost else slice(
+            self.group.rank * rows, (self.group.rank + 1) * rows)
+        acc_path = os.path.join(path, f"embed_acc{tag}.npy")
         if not self._adagrad and os.path.exists(acc_path) and not self.cfg.inference_only:
             raise ValueError(
                 f"{path!r} carries AdaGrad optimizer state but this run is "
@@ -1663,7 +1852,7 @@ class CachedDlrmTrainer:
                     "state (saved by an SGD run?); resume with the matching "
                     "optimizer"
                 )
-            store_path = os.path.join(path, "acc_store.npz")
+            store_path = os.path.join(path, f"acc_store{tag}.npz")
             if self._acc_master is not None and not os.path.exists(store_path):
                 raise ValueError(
                     f"adagrad_master_state set but {path!r} carries no "
@@ -1680,11 +1869,11 @@ class CachedDlrmTrainer:
                     self._acc_master.load_payload(data)
         self.cache = torch.from_numpy(np.array(cache0[mine])).to(self.device)
         if self.touched is not None:
-            touched0 = np.load(os.path.join(path, "touched.npy"))[mine]
+            touched0 = np.load(os.path.join(path, f"touched{tag}.npy"))[mine]
             self.touched = torch.from_numpy(touched0.astype(np.uint8)).to(self.device)
         with np.load(os.path.join(path, "occupancy.npz")) as data:
             self.controller.load_state_dict(dict(data))
-        self._load_master(os.path.join(path, "master.npz"))
+        self._load_master(os.path.join(path, f"master{tag}.npz"))
         self.global_step = meta["global_step"]
         self.controller.rng.bit_generator.state = meta["rng_state"]
         self._cursor = tuple(meta.get("cursor", (0, 0)))

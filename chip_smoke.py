@@ -40,7 +40,14 @@ wire with the touched rows aggregated (mean) after every step and the
 refill's evicted rows broadcast (``refill_broadcast='delta'``), then an eval
 pass, a checkpoint that a fresh pair loads bit-equal, and one step of each
 rank against the port on the CPU over the same group; (l) a few steps under
-``strict``, whose refill broadcasts the whole cache. Each run
+``strict``, whose refill broadcasts the whole cache; and multi-host mode as
+two ranks that share the card and join through a coordinator on a local
+port, each holding its row shard of the masters (phase 13): 20 counted steps
+with the window-row exchange hoisted mid-window, the first window's exchanged
+rows and the first eval batch's fetched rows held to the masters' values
+computed from the seed, the written-back rows to the evicted ones, then an
+eval pass, per-rank checkpoint files that a fresh pair loads bit-equal, and
+one step of each rank against the CPU. Each run
 resets every kernel's launch count just before it and reads them just after.
 One serving batch, one train step of each cached run, one coalesced block,
 one full-table step and one full-table AdaGrad step are checked against the
@@ -125,6 +132,14 @@ AG_BULK_TOL, AG_OUTLIERS = 1e-4, 1e-2
 # refuses two ranks on one device). The strict run is short: gloo stages a
 # CUDA tensor through the host, and its refill broadcasts the whole cache
 DP_WORLD, DP_STRICT_STEPS, DP_EVAL_BATCHES, DP_TIMEOUT_S = 2, 2 * LOOKAHEAD + 1, 2, 800
+# Phase 13: multi-host mode as two ranks on the one card (a gloo group asked
+# for by name, joined through the coordinator's tcp address), each holding
+# its row shard of the masters: MH_WARM_STEPS steps of set-up, then MH_STEPS
+# counted steps. The masters' procedural values (parallel/multihost.py): a
+# block of MH_BLOCK_ROWS rows drawn from the seed, row i of table t at block
+# row (i + t * MH_PHI) % MH_BLOCK_ROWS, scaled by sqrt(1 / rows)
+MH_WORLD, MH_WARM_STEPS, MH_STEPS, MH_TIMEOUT_S = 2, TRAIN_WARM_STEPS, 20, 800
+MH_BLOCK_ROWS, MH_PHI = 65536, 0x9E3779B1
 TIMING_REPS = 25
 # each kernel and its plain version are timed in interleaved rounds of
 # TIMING_REPS launches, kernel first in even rounds and plain first in odd
@@ -1711,29 +1726,8 @@ def two_ranks(card: str, rows: int, dev: torch.device) -> dict:
           "earlier change): this machine has one card, and both ranks use cuda:0")
     with tempfile.TemporaryDirectory(prefix="cdlrm_dp_") as tmp:
         rdzv = os.path.join(tmp, "rdzv")
-        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(DP_WORLD)]
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), rdzv, tmp],
-            stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO) for r in range(DP_WORLD)]
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        try:
-            while any(p.poll() is None for p in procs):
-                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            codes = [p.wait() for p in procs]
-            for r, log in enumerate(logs):
-                log.seek(0)
-                text = log.read()
-                log.close()
-                # rank 0 reports; the other rank's lines are its own checks
-                sys.stdout.write(text if r == 0 or any(codes) else "".join(
-                    line for line in text.splitlines(True) if line.startswith("  rank")))
-        assert codes == [0] * DP_WORLD, f"phase 12's ranks exited with {codes}"
+        run_rank_processes("phase 12", lambda r: ("--dp-rank", str(r), rdzv, tmp), DP_WORLD,
+                           DP_TIMEOUT_S, tmp)
         results = []
         for r in range(DP_WORLD):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -1746,12 +1740,340 @@ def two_ranks(card: str, rows: int, dev: torch.device) -> dict:
     return {"launches": launches}
 
 
+@functools.lru_cache(maxsize=1)
+def _procedural_block() -> np.ndarray:
+    rng = np.random.default_rng(SEED)
+    fast = np.random.Generator(np.random.SFC64(int(rng.integers(2**31))))
+    return fast.random((MH_BLOCK_ROWS, DIM), dtype=np.float32) * 2.0 - 1.0
+
+
+def procedural_rows(t: int, ids: np.ndarray) -> np.ndarray:
+    """The masters' initial rows of table ``t`` at ``ids``, computed here from
+    the seed without any table: the first draw of the trainer's generator
+    seeds the block, and a row is its hashed block row scaled by
+    sqrt(1 / rows)."""
+    pos = (np.asarray(ids, np.int64) + t * MH_PHI) % MH_BLOCK_ROWS
+    return _procedural_block()[pos] * np.float32(np.sqrt(1.0 / ROWS))
+
+
+def instrument_exchanges(tr, group) -> dict:
+    """Count, time and size every exchange of ``tr``: each window exchange
+    and each eval exchange (its two all-gathers), host clock around the call
+    on the train thread, bytes received from the all-gathers' outputs. Keeps
+    the first window's rows and the first eval batch's requests and rows for
+    the checks."""
+    seen = {"window": [0, 0.0, 0], "eval": [0, 0.0, 0], "first": {}, "kind": "window"}
+    gather, exchange, fetch = group.all_gather_host, tr._exchange_window, tr._row_exchange.fetch
+
+    def all_gather_host(block):
+        out = gather(block)
+        seen[seen["kind"]][2] += out.nbytes
+        return out
+
+    def exchange_window(uniques, rows):
+        t0 = time.perf_counter()
+        out = exchange(uniques, rows)
+        seen["window"][0] += 1
+        seen["window"][1] += time.perf_counter() - t0
+        seen["first"].setdefault("window", (uniques, out))
+        return out
+
+    def fetch_rows(requests):
+        seen["kind"] = "eval"
+        t0 = time.perf_counter()
+        try:
+            out = fetch(requests)
+        finally:
+            seen["kind"] = "window"
+        seen["eval"][0] += 1
+        seen["eval"][1] += time.perf_counter() - t0
+        seen["first"].setdefault("eval", ([(t, ids.copy()) for t, ids in requests], out))
+        return out
+
+    group.all_gather_host = all_gather_host
+    tr._exchange_window, tr._row_exchange.fetch = exchange_window, fetch_rows
+    return seen
+
+
+def mh_run(card: str, dev: torch.device, group, coordinator: str, tmp: str) -> dict:
+    """One rank's part of phase 13 (multi-host mode at the headline
+    geometry, run (b)'s stream and wire, ``refill_broadcast=delta``, the
+    refill prestage on): set-up steps, MH_STEPS counted steps, one more step
+    whose aggregate holds the union rows against the other rank's, an eval
+    pass, a synchronous checkpoint loaded bit-equal into a fresh pair, one
+    step against the CPU. Checks the first window's exchanged rows and the
+    first eval batch's fetched rows against the masters' procedural values,
+    the dense parameters across the ranks, and that the rows the ranks wrote
+    back partition the evicted rows. Rank 0 prints; every rank returns its
+    launch counts."""
+    import zlib
+
+    from cdlrm_tpu_torch.models.dlrm import param_leaves
+    from cdlrm_tpu_torch.parallel.multihost import ShardedMasterTables
+    from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
+
+    rank = group.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
+    warm, steps = MH_WARM_STEPS, MH_STEPS
+    cfg = headline_config(world_size=MH_WORLD, lookahead=LOOKAHEAD, print_freq=1 << 30,
+                          dedup_lookups="on", table_agg_freq=1, table_agg_op="mean",
+                          refill_broadcast="delta", coordinator_address=coordinator)
+    train_ds = uniform_stream(cfg, warm + steps + 4, SEED + 2)
+    test_ds = uniform_stream(cfg, DP_EVAL_BATCHES, SEED + 3)
+    t0 = time.perf_counter()
+    tr = CachedDlrmTrainer(cfg, train_ds, test_ds, device=dev, group=group)
+    build_s = time.perf_counter() - t0
+    assert tr.multihost and isinstance(tr.master, ShardedMasterTables), "not multi-host mode"
+    lo, hi = tr.master.ranges[0]
+    master_bytes = sum(t.nbytes for t in tr.master.tables)
+    ex = instrument_exchanges(tr, group)
+    evicted = [[] for _ in range(TABLES)]
+    put = tr.eviction_fifo.put
+
+    def record_evictions(item, *args, **kwargs):
+        if isinstance(item, tuple):  # not a flush barrier or the closing None
+            tables, idxs = item[0], item[1]
+            for t in np.unique(tables):
+                evicted[int(t)].append(np.asarray(idxs[tables == t], np.int64))
+        return put(item, *args, **kwargs)
+
+    tr.eviction_fifo.put = record_evictions
+    agg = {"check": False, "union_rows": None}
+    inner = tr._aggregate
+
+    def aggregate():
+        union = group.all_reduce_max(tr.touched.clone()).bool() if agg["check"] else None
+        inner()
+        if union is not None:
+            agg["union_rows"] = int(union.sum())
+            assert same_on_all_ranks(group, tr.cache[union]), (
+                "the ranks' caches differ on the union rows after an aggregate step")
+
+    tr._aggregate = aggregate
+    out = {}
+    try:
+        # the first window's exchanged rows: nothing is written back yet
+        tr.train(max_steps=warm)
+        uniques, rows = ex["first"]["window"]
+        n_rows = sum(u.size for u in uniques)
+        for t in range(TABLES):
+            assert np.array_equal(rows[t], procedural_rows(t, uniques[t])), (
+                f"table {t}: the first window's exchanged rows are not the masters' values")
+        say(f"  first window: the {n_rows} exchanged rows of {TABLES} tables equal the masters' "
+            "procedural values (computed from the seed's block, no table built)")
+        torch.cuda.synchronize()
+        m = tr.metrics
+        base = (m.refills, tr.mh_prefetches, ex["window"][:])
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.train(max_steps=warm + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        refills, hoists = m.refills - base[0], tr.mh_prefetches - base[1]
+        n_ex = ex["window"][0] - base[2][0]
+        ex_s, ex_bytes = ex["window"][1] - base[2][1], ex["window"][2] - base[2][2]
+        assert tr.global_step == warm + steps and refills > 0 and hoists > 0, (refills, hoists)
+        say(f"[{card}] two ranks sharing one card over gloo, multi-host mode (row-sharded "
+            f"masters, refill_broadcast=delta, refill prestage): {steps} steps of {BATCH} "
+            f"({cfg.local_batch_size} a rank) in {wall:.3f} s host wall, "
+            f"{steps * BATCH / wall:.1f} examples/s global ({1000 * wall / steps:.2f} ms/step); "
+            f"{refills} refills, {hoists} prestage hoists; window exchange "
+            f"{1000 * ex_s / n_ex:.1f} ms on the train thread and {ex_bytes / n_ex / 1e6:.1f} MB "
+            f"received a rank (mean of {n_ex}); loss {m.loss_sum / max(1, m.examples):.6f}, "
+            f"train hit rate {m.hit_rate:.6f}; kernel launches of the {steps} steps "
+            f"{out['launches']}")
+        say(f"  host RAM of the masters: {master_bytes / 1e9:.3f} GB a rank (its row shard, "
+            f"rows [{lo}, {hi}) of every table) against {TABLES * ROWS * DIM * 4 / 1e9:.3f} GB "
+            "for the whole masters that each rank would hold as full tables; phase 12's ranks "
+            "hold virtual masters (a block and the rows written back)")
+        flat = torch.cat([p.reshape(-1) for p in param_leaves(tr.params)])
+        assert same_on_all_ranks(group, flat), "dense parameters differ between the ranks"
+        say(f"  dense parameters ({flat.numel()} values) bit-equal on both ranks after the run")
+        agg["check"] = True
+        tr.train(max_steps=warm + steps + 1)
+        agg["check"] = False
+        say(f"  after an aggregate step (table_agg_freq 1) the {agg['union_rows']} union rows "
+            "are bit-equal on both ranks")
+
+        acc, auc = tr.evaluate()
+        assert np.isfinite(acc) and np.isfinite(auc), (acc, auc)
+        assert tr.eviction_manager.flush(timeout=120), "eviction writeback stalled"
+        # the written-back rows partition the evicted ones: this rank wrote
+        # exactly the evicted ids it owns, and the counts add up over the ranks
+        mine_total, all_total = 0, 0
+        for t in range(TABLES):
+            ev = np.unique(np.concatenate(evicted[t])) if evicted[t] else np.zeros(0, np.int64)
+            t_lo, t_hi = tr.master.ranges[t]
+            want = ev[(ev >= t_lo) & (ev < t_hi)]
+            assert np.array_equal(tr.master._dirty.ids(t), want), f"table {t}: written != owned"
+            mine_total += want.size
+            all_total += ev.size
+        totals = group.all_reduce_sum(torch.tensor([mine_total], dtype=torch.int64))
+        assert int(totals[0]) == all_total > 0, (int(totals[0]), all_total)
+        say(f"  the {all_total} evicted (table, id) pairs are written back exactly once over "
+            f"the ranks (rank 0 {mine_total}), each by its owner")
+        # the first eval batch's fetched rows: the procedural values, or for
+        # an evicted row this rank owns, its own master's
+        requests, fetched = ex["first"]["eval"]
+        n_proc = n_own = 0
+        for (t, ids), got in zip(requests, fetched):
+            ev = np.unique(np.concatenate(evicted[t])) if evicted[t] else np.zeros(0, np.int64)
+            written = np.isin(ids, ev)
+            assert np.array_equal(got[~written], procedural_rows(t, ids[~written])), (
+                f"table {t}: fetched eval rows are not the masters' values")
+            own = written & tr.master.owned_mask(t, ids)
+            assert np.array_equal(got[own], tr.master.gather_owned_of(t, ids[own])), t
+            n_proc += int((~written).sum())
+            n_own += int(own.sum())
+        n_eval, eval_s, eval_bytes = ex["eval"]
+        print(f"  rank {rank}: eval exchange {1000 * eval_s / n_eval:.1f} ms on the train "
+              f"thread and {eval_bytes / n_eval / 1e6:.2f} MB received (mean of {n_eval} "
+              f"batches, two all-gathers each); the first batch's {n_proc} fetched rows never "
+              f"written back equal the procedural values, and its {n_own} written back rows "
+              "that this rank owns equal its master's")
+
+        # checkpoint: each rank's files in one directory, loaded by a fresh pair
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        tr.save_checkpoint(ck)
+        save_s = time.perf_counter() - t0
+        tag = f".h{rank}"
+        assert os.path.exists(os.path.join(ck, f"master{tag}.npz"))
+        sums = [zlib.crc32(t) for t in tr.master.tables]
+        snap = [tr.cache.clone(), tr.touched.clone()] + [p.clone() for p in param_leaves(tr.params)]
+        tr.close()
+        batch = list(itertools.islice(train_ds.batches(), warm + steps + 1))[-1]
+        inputs, _, dedup, _ = tr._assemble(batch, cfg.local_batch_size)
+        step = tr._get_step(1, dedup)
+        params_cpu, cache_cpu = _cpu_copy(tr.params), tr.cache.to("cpu", copy=True)
+        touched_cpu = tr.touched.to("cpu", copy=True)
+        p_dev, c_dev, l_dev, _ = step(tr.params, tr.cache, *inputs, tr._lr, tr._lr_emb,
+                                      touched=tr.touched)
+        p_cpu, c_cpu, l_cpu, _ = step(params_cpu, cache_cpu, *[x.cpu() for x in inputs],
+                                      tr._lr, tr._lr_emb, touched=touched_cpu)
+        cache_err = _max_row_err(c_dev, c_cpu)
+        param_err = _max_param_err(p_dev, p_cpu)
+        loss_err = abs(float(l_dev) - float(l_cpu)) / BATCH
+        assert torch.equal(tr.touched.cpu(), touched_cpu), "touched masks differ from the CPU's"
+        assert max(cache_err, param_err, loss_err) <= SCORE_TOL, (cache_err, param_err, loss_err)
+        print(f"  rank {rank}: one step vs the port on the CPU over the same group: max |cache "
+              f"difference| {cache_err:.3e}, |param difference| {param_err:.3e}, |loss "
+              f"difference| {loss_err:.3e} (tolerance {SCORE_TOL}), touched masks equal")
+        del c_cpu, cache_cpu, params_cpu, p_dev, c_dev
+        tr.cache = tr.touched = tr.master = None
+        torch.cuda.empty_cache()
+        tr = CachedDlrmTrainer(cfg, train_ds, test_ds, device=dev, group=group)
+        t0 = time.perf_counter()
+        tr.load_checkpoint(ck)
+        load_s = time.perf_counter() - t0
+        got = [tr.cache, tr.touched] + param_leaves(tr.params)
+        assert all(torch.equal(a, b) for a, b in zip(snap, got)), (
+            "the loaded checkpoint differs from the saved state")
+        assert [zlib.crc32(t) for t in tr.master.tables] == sums, "loaded master shard differs"
+        assert tr.global_step == warm + steps + 1
+        size = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        say(f"  checkpoint of the pair: {size / 1e9:.3f} GB in one directory (each rank's "
+            f"cache{tag}.npy [{tr.geo.total_rows}, {DIM}], touched and master shard, rank 0's "
+            f"shared files), saved in {save_s:.2f} s (synchronous, ending in the barrier), "
+            f"loaded into a fresh pair in {load_s:.2f} s, cache, touched mask, parameters and "
+            f"master shard bit-equal on rank {rank} and its peer; trainer build (masters "
+            f"included) {build_s:.2f} s")
+        return out
+    finally:
+        tr.close()
+
+
+def mh_rank_main(rank: int, port: str, tmp: str) -> int:
+    """One of phase 13's two ranks: a process of its own that makes cuda:0
+    current, joins the coordinator ``127.0.0.1:port`` through
+    ``initialize_distributed`` in a gloo group asked for by name, runs
+    :func:`mh_run`, writes its launch counts to ``tmp/mh_rank<r>.json`` and
+    leaves. Any failure exits non-zero, and the parent reads the code."""
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+    from cdlrm_tpu_torch.parallel.multihost import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = card_line()
+    coordinator = f"127.0.0.1:{port}"
+    pid, nproc = initialize_distributed(coordinator, MH_WORLD, rank, backend="gloo", device=dev,
+                                        timeout_s=MH_TIMEOUT_S)
+    assert (pid, nproc) == (rank, MH_WORLD), (pid, nproc)
+    group = make_dp_mesh(MH_WORLD)
+    assert group.backend == "gloo" and group.rank == rank
+    try:
+        result = mh_run(card, dev, group, coordinator, tmp)
+    finally:
+        destroy_dp_mesh(group)
+    with open(os.path.join(tmp, f"mh_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_rank_processes(phase: str, argv_of, world: int, timeout_s: float, tmp: str) -> None:
+    """Start ``world`` processes of this script (``argv_of(rank)``), wait
+    for all of them, print rank 0's log (and every rank's after a failure,
+    else the other ranks' lines that start with "  rank"), and fail on any
+    exit code but 0. A failed or late rank ends the others at once."""
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv_of(r)],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        codes = [p.wait() for p in procs]
+        for r, log in enumerate(logs):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            sys.stdout.write(text if r == 0 or any(codes) else "".join(
+                line for line in text.splitlines(True) if line.startswith("  rank")))
+    assert codes == [0] * world, f"{phase}'s ranks exited with {codes}"
+
+
+def multi_host(card: str) -> dict:
+    """Phase 13: multi-host mode as two ranks on the one card, joined through
+    a coordinator on a free local port. Returns the kernel launches of their
+    counted steps, added over the ranks."""
+    import socket
+
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    with tempfile.TemporaryDirectory(prefix="cdlrm_mh_") as tmp:
+        run_rank_processes("phase 13", lambda r: ("--mh-rank", str(r), port, tmp), MH_WORLD,
+                           MH_TIMEOUT_S, tmp)
+        results = []
+        for r in range(MH_WORLD):
+            with open(os.path.join(tmp, f"mh_rank{r}.json")) as f:
+                results.append(json.load(f))
+    launches = {name: sum(res["launches"][name] for res in results) for name in KERNELS}
+    print(f"[{card}] phase 13: both ranks exited 0; kernel launches of their counted steps, "
+          f"both ranks: {launches}")
+    assert all(launches[name] > 0 for name in KERNELS), launches
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
         return dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if len(sys.argv) > 1 and sys.argv[1] == "--mh-rank":
+        return mh_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from cdlrm_tpu_torch.cache.geometry import CacheGeometry
     from cdlrm_tpu_torch.ops import _build, native
 
@@ -1791,6 +2113,7 @@ def main() -> int:
     runs["profiled"] = profiled_run(card, dev)
     torch.cuda.empty_cache()
     runs["two_ranks"] = two_ranks(card, rows, dev)
+    runs["multi_host"] = multi_host(card)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu")]
     assert not loaded, f"the port imported {loaded}"

@@ -180,6 +180,19 @@ def test_cached_equals_fulltable_when_fully_resident(kw):
     (dict(coordinator_address="localhost:1234"), "coordinator_address"),
 ])
 def test_fulltable_refuses_unported_fields(kw, name):
+    """The full-table trainer stays single-process: a multi-host group
+    (``coordinator_address`` and two ranks) is refused in cdlrm_tpu's words
+    (fulltable.py:33-36); with one rank it trains on one device."""
+    from cdlrm_tpu_torch.parallel.mesh import DpGroup
+
     ds = _ds(3, 1)
-    with pytest.raises(ValueError, match="does not implement .*" + name):
-        FullTableDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
+    with pytest.raises(ValueError, match="FullTableDlrmTrainer is single-process; multi-host "
+                                         "runs use the cached trainer"):
+        FullTableDlrmTrainer(_cfg(True, world_size=2, **kw), ds, ds, device="cpu",
+                             group=DpGroup(0, 2))
+    tr = FullTableDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
+    try:
+        tr.train(max_steps=1, log_fn=lambda *_: None)
+        assert tr.global_step == 1 and getattr(tr.cfg, name)
+    finally:
+        tr.close()

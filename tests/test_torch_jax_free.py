@@ -213,9 +213,11 @@ def test_cli_profiles_without_jax(tmp_path):
 
 def test_cli_trains_two_ranks_without_jax(tmp_path):
     """``--world-size 2`` on the CPU: the CLI spawns two ranks, which meet
-    over gloo. The spawned interpreters inherit no ``sys.modules``, so here
-    jax, ml_dtypes and cdlrm_tpu are blocked by modules of those names that
-    raise, placed ahead of the repo on the path of the CLI and its ranks."""
+    over gloo; then a multi-host run, two CLI processes that join a
+    coordinator and hold a row shard of the masters each. The interpreters
+    inherit no ``sys.modules``, so here jax, ml_dtypes and cdlrm_tpu are
+    blocked by modules of those names that raise, placed ahead of the repo
+    on the path of the CLI and its ranks."""
     stubs = tmp_path / "stubs"
     for name in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu"):
         (stubs / name).mkdir(parents=True)
@@ -234,6 +236,27 @@ def test_cli_trains_two_ranks_without_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     # rank 0 alone prints
     assert res.stdout.count("Step 8:") == 1 and res.stdout.count("Test accuracy") == 1
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cdlrm_tpu_torch.cli", *_SMALL, "--world-size", "2",
+         "--lookahead", "2", "--print-freq", "4", "--coordinator-address",
+         f"127.0.0.1:{port}", "--num-hosts", "2", "--host-id", str(r)],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err
+        assert f"[multihost] process {r}/2 initialized" in out
+    assert outs[0][0].count("Step 8:") == 1 and outs[0][0].count("Test accuracy") == 1
 
 
 def test_cli_refuses_training():

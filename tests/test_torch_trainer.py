@@ -119,8 +119,12 @@ def test_port_refill_then_serve_hits():
 
 def test_unported_flags_are_refused():
     ds = _ds(5, 1)
-    with pytest.raises(ValueError, match="does not implement"):
-        CachedDlrmTrainer(_cfg(True, coordinator_address="localhost:1234"), ds, ds, device="cpu")
+    # multi-host mode is ported (tests/test_torch_mh_trainer.py): with a
+    # coordinator and one rank the trainer builds for one device
+    tr = CachedDlrmTrainer(_cfg(True, coordinator_address="localhost:1234"), ds, ds,
+                           device="cpu")
+    assert not tr.multihost
+    tr.close()
     # QR tables with the cache raise cdlrm_tpu's own error (trainer.py:285-294)
     with pytest.raises(ValueError, match="qr_flag with the cached path"):
         CachedDlrmTrainer(_cfg(True, qr_flag=True), ds, ds, device="cpu")
@@ -140,7 +144,6 @@ def test_unported_flags_are_refused():
 @pytest.mark.parametrize("kw,name", [
     (dict(hot_tier_rows=64), "hot_tier_rows"),
     (dict(sorted_dedup_wire=True, pack_wire=False, dedup_lookups="on"), "sorted_dedup_wire"),
-    (dict(coordinator_address="localhost:1234"), "coordinator_address"),
 ])
 def test_unimplemented_training_fields_are_refused(kw, name):
     """Fields that train() would otherwise ignore are refused at
@@ -148,8 +151,8 @@ def test_unimplemented_training_fields_are_refused(kw, name):
     the tests above. Scan blocks, the unpacked dedup wire, use_cache=False
     (routed to the full-table trainer by the CLI), AdaGrad, checkpoint
     saves, the bf16 row wire, the fp8 dense wire, cached mixed-dimension
-    tables, profiling and world_size > 1 (tests/test_torch_dp_trainer.py)
-    are ported."""
+    tables, profiling, world_size > 1 (tests/test_torch_dp_trainer.py) and
+    multi-host mode (tests/test_torch_mh_trainer.py) are ported."""
     ds = _ds(5, 1)
     with pytest.raises(ValueError, match="does not implement .*" + name):
         CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")

@@ -1,7 +1,8 @@
-"""Data-parallel test worker: one rank of an N-process gloo group of
-cdlrm_tpu_torch on the CPU.
+"""Data-parallel and multi-host test worker: one rank of an N-process gloo
+group of cdlrm_tpu_torch on the CPU.
 
-Launched by tests/test_torch_dp.py and tests/test_torch_dp_trainer.py::
+Launched by tests/test_torch_dp.py, tests/test_torch_dp_trainer.py and
+tests/test_torch_mh_trainer.py::
 
     python tests/torch_dp_worker.py RANK WORLD RENDEZVOUS_FILE SPEC.json OUT_DIR
 
@@ -17,6 +18,7 @@ importing this module, which imports neither jax nor cdlrm_tpu.
 import json
 import os
 import sys
+import threading
 import traceback
 
 import numpy as np
@@ -40,14 +42,25 @@ class Stream:
     """A seeded synthetic stream with a learnable target (y depends on the
     first dense feature). ``skew`` draws ids from ``[0, skew)`` so lookups
     repeat; ``pooled`` > 0 gives multi-hot bags of that width with random
-    masks (position 0 always valid)."""
+    masks (position 0 always valid).
+
+    ``cycle`` > 0 (single-index only; tests/test_adagrad_master_state.py's
+    _CycleStream for every table): window w of ``window`` batches draws, in
+    every table, all the ``cycle`` ids of the range ``(w % 4) * cycle`` and
+    no other. With ``cycle`` equal to the cache's sets times its ways, each
+    refill claims every way of every set (the whole previous window evicts,
+    nothing misses), and an id comes back four windows after its last use,
+    after its writeback whenever the prefetcher runs at most a window ahead
+    (``batch_fifo_size=1``)."""
 
     m_den = DEN
 
-    def __init__(self, ln_emb, num_batches, batch, seed=0, pooled=0, skew=0):
+    def __init__(self, ln_emb, num_batches, batch, seed=0, pooled=0, skew=0, cycle=0,
+                 window=0):
         self.ln_emb = np.asarray(ln_emb)
         self.num_batches, self.batch, self.seed = num_batches, batch, seed
         self.pooled, self.skew = pooled, skew
+        self.cycle, self.window = cycle, window
 
     def __len__(self):
         return self.num_batches
@@ -55,10 +68,14 @@ class Stream:
     def batches(self):
         rng = np.random.default_rng(self.seed)
         t_count = len(self.ln_emb)
-        for _ in range(self.num_batches):
+        for j in range(self.num_batches):
             x = rng.random((self.batch, self.m_den)).astype(np.float32)
             y = (x[:, :1] > 0.5).astype(np.float32)
             shape = (self.batch, self.pooled) if self.pooled else (self.batch,)
+            if self.cycle:
+                ls = np.stack([self._cycle_ids(j, t) for t in range(t_count)])
+                yield Batch(x, ls, None, y)
+                continue
             ls = np.stack([rng.integers(0, min(n, self.skew) if self.skew else n, shape)
                            for n in self.ln_emb])
             if not self.pooled:
@@ -67,6 +84,15 @@ class Stream:
             mask = rng.random((t_count,) + shape) < 0.7
             mask[:, :, 0] = True
             yield Batch(x, ls, mask, y)
+
+
+    def _cycle_ids(self, j, t):
+        w, c = j // self.window, self.cycle
+        wrng = np.random.default_rng([13, w, t])
+        seq = np.concatenate([wrng.permutation(c),
+                              wrng.integers(0, c, self.window * self.batch - c)])
+        seq += (w % 4) * c
+        return seq[(j % self.window) * self.batch: (j % self.window + 1) * self.batch]
 
 
 def step_geometry(b_loc):
@@ -277,6 +303,19 @@ def train_and_collect(tr, steps, evaluate=False, more_steps=0, save=None, to_num
     return out
 
 
+def record_exchange_threads(group) -> list:
+    """Wrap ``group.all_gather_host`` so that every call records whether the
+    main thread made it; returns the list of records."""
+    calls, inner = [], group.all_gather_host
+
+    def recorded(block):
+        calls.append(threading.current_thread() is threading.main_thread())
+        return inner(block)
+
+    group.all_gather_host = recorded
+    return calls
+
+
 def case_trainer(group, ln_emb, cfg, stream, steps, out_dir, test_stream=None, load=None,
                  save=None, more_steps=0, inline=False, **_):
     import torch
@@ -287,6 +326,7 @@ def case_trainer(group, ln_emb, cfg, stream, steps, out_dir, test_stream=None, l
     cfg = make_cfg(Config, ln_emb, **cfg)
     ds = Stream(ln_emb, **stream)
     test_ds = Stream(ln_emb, **test_stream) if test_stream else None
+    calls = record_exchange_threads(group)
     tr = CachedDlrmTrainer(cfg, ds, test_ds, device="cpu", group=group)
     try:
         if inline:
@@ -309,6 +349,17 @@ def case_trainer(group, ln_emb, cfg, stream, steps, out_dir, test_stream=None, l
         if hasattr(tr.master, "tables"):
             for t, table in enumerate(tr.master.tables):
                 out[f"master_{t}"] = np.asarray(table)
+        if tr.multihost:
+            # the row shard's written-back ids, the exchanges and the threads
+            # that made them, the prestage hoists
+            for t in range(len(ln_emb)):
+                out[f"dirty_{t}"] = tr.master._dirty.ids(t)
+            out["rows_written"] = tr.eviction_manager.rows_written
+            out["mh_prefetches"] = tr.mh_prefetches
+            out["exchanges"] = np.array(calls, dtype=bool)
+            if tr._acc_master is not None:
+                out["acc_store_nonzero"] = sum(int(np.count_nonzero(a))
+                                               for a in tr._acc_master.accs)
         assert torch.distributed.get_world_size() == group.world_size
         return out
     finally:
