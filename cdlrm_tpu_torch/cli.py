@@ -28,8 +28,8 @@ Example (tiny, CPU-runnable):
     --lookahead 4 --print-freq 10
 
 Every flag but ``--device`` is also cdlrm_tpu's (cdlrm_tpu_torch.config
-keeps the same fields); the trainer
-refuses the ones the port does not implement yet (ROADMAP.md queue 1).
+keeps the same fields, checks and errors), and the port implements each of
+them.
 """
 
 from __future__ import annotations

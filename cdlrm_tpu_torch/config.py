@@ -1,8 +1,8 @@
 """Configuration: the live flag surface of the reference CLI plus this
 system's additions. The port's own copy of cdlrm_tpu/config.py: the same
 fields, defaults, checks and flags, so one command line configures either
-package. The trainers refuse the fields the port does not implement yet
-(ROADMAP.md queue 1); the fields that select cdlrm_tpu's Pallas or XLA forms
+package, and the port implements every field; the fields that select
+cdlrm_tpu's Pallas or XLA forms
 (``use_pallas_lookup``, ``use_pallas_scatter``, ``pallas_interpret``) are
 accepted and read by nothing here: the port's row operations are always its
 CUDA kernels.
@@ -268,7 +268,7 @@ class Config:
     #   Exact semantics (same gradient sums, different float order).
     #   QUARANTINED in cdlrm_tpu (the auto-dedup wire removes the
     #   duplicate-chain cost more cheaply); finalize() warns when enabled,
-    #   and the port's trainers refuse it.
+    #   as cdlrm_tpu's does.
     use_pallas_lookup: bool = False  # cdlrm_tpu: its Pallas gather for
     #   cache lookups. Read by nothing here (module docstring)
     use_pallas_scatter: bool = False  # cdlrm_tpu: its Pallas row scatters
@@ -307,7 +307,8 @@ class Config:
     #   slots in ascending order (one stable host argsort; exact — segments
     #   keep their contents) so the device unique gather/scatter read
     #   ascending rows. Requires pack_wire=False; no-op on the non-dedup
-    #   wire. Quarantined in cdlrm_tpu; the port's trainers refuse it.
+    #   wire. Quarantined in cdlrm_tpu; finalize() warns when enabled, as
+    #   cdlrm_tpu's does.
     block_coalesced_update: str = "auto"  # on | off | auto — scan-block
     #   pending-buffer sparse update (train/step.py StepConfig.block_coalesce):
     #   per-lookup grads scatter into a small pending buffer in

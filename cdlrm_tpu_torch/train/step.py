@@ -1,8 +1,9 @@
 """Device steps, the counterpart of cdlrm_tpu/train/step.py: the cached
-train step (the plain wire and the packed and unpacked dedup wires; SGD, and
-AdaGrad on the dedup wires), scan blocks of it with the block-coalesced
-update, the cached eval step, the refill step, the touched-row aggregate
-step, the full-table train and eval steps, and the wires they read.
+train step (the plain wire and the packed, unpacked and sorted unpacked
+dedup wires; SGD, with or without the hot tier, and AdaGrad on the dedup
+wires), scan blocks of it with the block-coalesced update, the cached eval
+step, the refill step, the touched-row aggregate step, the full-table train
+and eval steps, and the wires they read.
 
 Each step is a plain function over one rank's tensors on its device. PyTorch
 runs eagerly, so there is no jit and no ``lax.scan``: a scan block is a loop
@@ -104,6 +105,18 @@ class StepConfig(NamedTuple):
     # identity, else 1.0
     md_proj: bool = False
     md_train_mask: Tuple[float, ...] = ()
+    # the sorted unpacked dedup wire (Config.sorted_dedup_wire): the unique
+    # list holds ascending slots from position 0, trash padding at its tail,
+    # and masked lanes rank to its last position (_decode_dedup_raw)
+    sorted_wire: bool = False
+    # the hot tier (Config.hot_tier_rows): ``hot_rows`` = H > 0 adds the
+    # per-window input ``hot_slots`` [H] (sorted, the last position the trash
+    # row) and splits the sparse SGD update into one H-row add of the hot
+    # lookups' summed gradients and one add of the cold lookups, compacted to
+    # ``cold_bucket`` lanes, a bound of every batch's cold count that the
+    # window's shadow stats give (_hot_cold_update; cdlrm_tpu step.py:138-154)
+    hot_rows: int = 0
+    cold_bucket: int = 0
 
     @property
     def cdtype(self) -> Optional[torch.dtype]:
@@ -210,16 +223,25 @@ def _decode_dedup(
 
 def _decode_dedup_raw(
     inv: torch.Tensor, uniq_slots: torch.Tensor, uniq_counts: torch.Tensor,
+    sorted_wire: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode the unpacked dedup wire (cdlrm_tpu _decode_dedup_raw,
-    step.py:304, default layout; host_cache.probe_dedup_raw): ``inv`` int32
-    [T, n] table-local first-seen ranks (-1 = masked), ``uniq_slots`` int32
-    [Ub] global cache rows, position 0 the reserved trash rank, then each
-    table's unique rows, then trash-row padding. Returns (uniq_slots, ginv
-    [T*n] int32 ranks into uniq_slots; masked positions -> 0)."""
+    step.py:304-328; host_cache.probe_dedup_raw): ``inv`` int32 [T, n]
+    table-local ranks (-1 = masked), ``uniq_slots`` int32 [Ub] global cache
+    rows. Default layout: position 0 the reserved trash rank, then each
+    table's unique rows, then trash-row padding; masked positions rank to 0.
+    ``sorted_wire``: no reserved head, the ascending unique rows from
+    position 0 (the table blocks are disjoint and ascending, so the ranks
+    keep their per-table offsets), trash padding at the tail, which the
+    host's bucket guard keeps at least one long; masked positions rank to
+    the last position. Returns (uniq_slots, ginv [T*n] int32 ranks into
+    uniq_slots)."""
     cum = torch.cumsum(uniq_counts.to(torch.int64), 0)
     base = torch.cat([cum.new_zeros(1), cum[:-1]])[:, None]
-    ginv = torch.where(inv < 0, 0, inv + 1 + base)
+    if sorted_wire:
+        ginv = torch.where(inv < 0, uniq_slots.shape[0] - 1, inv + base)
+    else:
+        ginv = torch.where(inv < 0, 0, inv + 1 + base)
     return uniq_slots, ginv.reshape(-1).to(torch.int32)
 
 
@@ -421,12 +443,73 @@ def _mark_touched(touched: Optional[torch.Tensor], slots: torch.Tensor, trash_ro
     touched[trash_row] = 0
 
 
+def _hot_cold_update(cache: torch.Tensor, touched: Optional[torch.Tensor],
+                     flat_slots: torch.Tensor, drows: torch.Tensor, hot_slots: torch.Tensor,
+                     lr_embeds: float, cfg: StepConfig, trash_row: int) -> None:
+    """Hot-tier sparse SGD (cdlrm_tpu ``_hot_cold_update``, step.py:375-440):
+    the sums of ``index_add_rows(cache, flat_slots, drows, -lr_embeds)`` in
+    two row adds, H hot rows and ``cold_bucket`` cold lanes, in place.
+    ``flat_slots`` [N] int32 is each lookup's cache row, ``drows`` [N, D] its
+    gradient, ``hot_slots`` [H] int32 the window's sorted hot list, whose last
+    position is the trash row (masked lanes are hot and carry zero gradient).
+    The touched mask, when tracked, gains the rows that a hot or a cold lane
+    updated, as ``.max`` does in cdlrm_tpu.
+
+    Every add goes through ``index_add_rows``, the atomic kernel: the hot
+    segment sum and the cold add have duplicate targets by nature, and so
+    may the H-row apply. The host pads a short hot list with rows that
+    descend from the trash row (CachedDlrmTrainer._apply_window_stats); past
+    the last table's aux region they reach its way rows, where a selected
+    hot row can sit twice in the list. ``scatter_add_rows`` assumes distinct
+    rows and adds without atomics, so a repeated row could lose its real
+    update in a read-modify-write race; a per-window host check would buy
+    the distinct kernel at the price of a second code path for the same
+    bytes. A repeated row's second position receives no lane (the search
+    finds the first), so it adds exactly -0.0 in any order."""
+    h = cfg.hot_rows
+    n = flat_slots.shape[0]
+    k = min(cfg.cold_bucket, n)  # a power-of-two bucket may round past N
+    dev = cache.device
+    flat_slots = flat_slots.contiguous()
+    drows = drows.contiguous()
+    zero = drows.new_zeros(())
+    pos = torch.searchsorted(hot_slots, flat_slots).clamp_(max=h - 1)
+    is_hot = hot_slots[pos] == flat_slots
+    # trash-targeted lanes carry zero gradient: spread them over the H rows
+    # (adding +0.0) rather than chain every one onto the trash position
+    use_hot = is_hot & (flat_slots != trash_row)
+    lanes = torch.arange(n, dtype=torch.int64, device=dev)
+    hot_pos = torch.where(use_hot, pos, lanes % h).to(torch.int32)
+    d_hot = torch.zeros((h, cache.shape[1]), dtype=torch.float32, device=dev)
+    index_add_rows(d_hot, hot_pos, torch.where(use_hot[:, None], drows, zero))
+    index_add_rows(cache, hot_slots, d_hot, alpha=-lr_embeds)
+    # cold: a stable sort puts the cold lanes first in lane order (on an
+    # integer view: no bool sort on the card); the bucket bounds their count,
+    # and padding lanes add -0.0 to spread rows
+    cold_idx = torch.argsort(is_hot.to(torch.int32), stable=True)[:k]
+    cold_ok = ~is_hot[cold_idx]
+    spread = (torch.arange(k, dtype=torch.int64, device=dev) % cache.shape[0]).to(torch.int32)
+    cold_slots = torch.where(cold_ok, flat_slots[cold_idx], spread)
+    cold_g = torch.where(cold_ok[:, None], gather_rows(drows, cold_idx.to(torch.int32)), zero)
+    index_add_rows(cache, cold_slots, cold_g, alpha=-lr_embeds)
+    if touched is not None:
+        # ones only, at the used hot positions' rows and the valid cold lanes'
+        # (the rest at the trash row, cleared after): duplicate indices then
+        # never write a 0 over a 1
+        hot_used = torch.zeros(h + 1, dtype=torch.uint8, device=dev)
+        hot_used[torch.where(use_hot, pos, h)] = 1
+        _mark_touched(touched, torch.cat([
+            torch.where(hot_used[:h].bool(), hot_slots, trash_row),
+            torch.where(cold_ok, cold_slots, trash_row),
+        ]), trash_row)
+
+
 def make_cached_train_step(
     geo: CacheGeometry, cfg: StepConfig, pooled_width: int = 0, block: int = 1,
     group: Optional[DpGroup] = None,
 ) -> Callable:
     """The cached train step of one rank (cdlrm_tpu make_cached_train_step,
-    step.py:524, no hot tier; SGD, or AdaGrad on the dedup wire).
+    step.py:524; SGD, or AdaGrad on the dedup wire).
 
     Plain wire (``cfg.dedup`` off, ``body`` step.py:632)::
 
@@ -457,6 +540,17 @@ def make_cached_train_step(
 
         step(params, cache, *per_batch_inputs, blk_slots, blk_counts, lr,
              lr_embeds) -> (params, cache, loss_sum [block], correct [block])
+
+    With ``cfg.hot_rows`` > 0 (SGD, single steps or scan blocks of either
+    wire; cdlrm_tpu step.py:908-909) the window's hot list ``hot_slots`` [H]
+    int32 rides after the per-batch inputs, before ``lr``, and the sparse
+    update is :func:`_hot_cold_update`'s::
+
+        step(params, cache, *per_batch_inputs, hot_slots, lr, lr_embeds)
+             -> (params, cache, loss_sum, correct)
+
+    With ``cfg.sorted_wire`` the unpacked dedup wire's unique list is
+    ascending (:func:`_decode_dedup_raw`); the signature is the dedup wire's.
 
     With ``cfg.optimizer == 'adagrad'`` (dedup wire only, single steps or
     scan blocks) the optimizer state rides after the per-batch inputs,
@@ -489,6 +583,9 @@ def make_cached_train_step(
             "lookups must be coalesced before the row-wise state update); "
             "set dedup_lookups='on'"
         )
+    hot = cfg.hot_rows > 0
+    if adagrad and hot:
+        raise ValueError("optimizer='adagrad' is incompatible with the hot tier")
     if cfg.block_coalesce:
         if block <= 1:
             raise ValueError("block_coalesce requires a scan block (block > 1)")
@@ -496,13 +593,19 @@ def make_cached_train_step(
             raise ValueError("block_coalesce requires the UNPACKED dedup wire")
         if adagrad:
             raise ValueError("block_coalesce requires optimizer='sgd'")
+        if hot:
+            raise ValueError("block_coalesce is incompatible with the hot tier")
     trash = geo.trash_row
     offsets = _TableOffsets(geo)
 
     value_and_grad = functools.partial(_value_and_grad, cfg, pooled_width)
 
-    def body(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets,
-             lr, lr_embeds, touched=None):
+    def body(params, cache, x, slots, ls_mask, aux_slots, aux_rows, targets, *tail,
+             touched=None):
+        if hot:
+            hot_slots, lr, lr_embeds = tail
+        else:
+            lr, lr_embeds = tail
         x = _upcast_x(x, cfg.cdtype)
         b_loc = targets.shape[0]
         if cfg.wire_pack:
@@ -516,19 +619,24 @@ def make_cached_train_step(
         loss, p, dflat, drows = value_and_grad(
             params, rows, lambda r: r, x, ls_mask, targets, t_count, b_loc
         )
-        # sparse SGD: the atomic row add sums duplicate slots (DESIGN.md D3).
-        # Masked multi-hot lanes all carry slot=trash with exactly zero
-        # gradient: spread them across rows (-0.0 is the float identity)
-        # rather than chain every one of them onto the trash row's atomics
-        upd_slots = flat_slots
-        if pooled_width > 0:
-            spread = (
-                torch.arange(flat_slots.shape[0], dtype=torch.int64, device=cache.device)
-                % cache.shape[0]
-            ).to(torch.int32)
-            upd_slots = torch.where(flat_slots == trash, spread, flat_slots)
-        index_add_rows(cache, upd_slots, drows.contiguous(), alpha=-lr_embeds)
-        _mark_touched(touched, flat_slots, trash)
+        if hot:
+            _hot_cold_update(cache, touched, flat_slots, drows, hot_slots, lr_embeds, cfg,
+                             trash)
+        else:
+            # sparse SGD: the atomic row add sums duplicate slots (DESIGN.md
+            # D3). Masked multi-hot lanes all carry slot=trash with exactly
+            # zero gradient: spread them across rows (-0.0 is the float
+            # identity) rather than chain every one of them onto the trash
+            # row's atomics
+            upd_slots = flat_slots
+            if pooled_width > 0:
+                spread = (
+                    torch.arange(flat_slots.shape[0], dtype=torch.int64, device=cache.device)
+                    % cache.shape[0]
+                ).to(torch.int32)
+                upd_slots = torch.where(flat_slots == trash, spread, flat_slots)
+            index_add_rows(cache, upd_slots, drows.contiguous(), alpha=-lr_embeds)
+            _mark_touched(touched, flat_slots, trash)
         params, _, loss_sum, correct = _finish(
             cfg, params, dflat, p, loss, targets, lr, b_loc, group=group)
         return params, cache, loss_sum, correct
@@ -539,14 +647,17 @@ def make_cached_train_step(
                 inv_wire, uniq_wire, uniq_counts, offsets(inv_wire.device), trash,
                 cfg.inv_bits, cfg.uniq_bits, n_lk,
             )
-        return _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts)
+        return _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts, cfg.sorted_wire)
 
     def body_dedup(params, cache, x, inv_wire, ls_mask, uniq_wire, uniq_counts,
                    aux_slots, aux_rows, targets, *tail, touched=None):
-        if adagrad:
+        dense_acc = None
+        if hot:
+            hot_slots, lr, lr_embeds = tail
+        elif adagrad:
             dense_acc, embed_acc, lr, lr_embeds = tail
         else:
-            (lr, lr_embeds), dense_acc = tail, None
+            lr, lr_embeds = tail
         x = _upcast_x(x, cfg.cdtype)
         b_loc = targets.shape[0]
         n_lk = b_loc * max(1, pooled_width)
@@ -554,33 +665,46 @@ def make_cached_train_step(
         t_count = inv_wire.shape[0]
         _stage_aux(cache, aux_slots, aux_rows, trash)
         uniq_slots, ginv = decode(inv_wire, uniq_wire, uniq_counts, n_lk)
-        rows_u = gather_rows(cache, uniq_slots).requires_grad_()  # [Ub, D]
-        # the expand's backward (gather_rows' index_add_rows) segment-sums
-        # duplicate-lookup gradients into [Ub, D], as the take's transpose
-        # does in cdlrm_tpu (step.py:779-787)
-        loss, p, dflat, d_rows_u = value_and_grad(
-            params, rows_u, lambda r: gather_rows(r, ginv), x, ls_mask, targets,
-            t_count, b_loc,
-        )
-        if adagrad:
-            # the row-wise state rides along at the same unique slots
-            # (cdlrm_tpu step.py:789-803). The bucket repeats the trash row,
-            # at position 0 and in the padding; those lanes carry exactly
-            # zero gradients, so each duplicate writes the same value, the
-            # trash row's state unchanged (+ mean(0^2))
-            u_idx = uniq_slots.long()
-            delta, acc_rows = _rowwise_adagrad_scale(
-                d_rows_u, embed_acc[u_idx], lr_embeds, cfg.adagrad_eps
+        if hot:
+            # the hot tier differentiates with respect to the expanded rows:
+            # per-lookup gradients, split hot and cold by each lookup's
+            # resolved row (cdlrm_tpu step.py:762-776)
+            rows_exp = gather_rows(gather_rows(cache, uniq_slots), ginv).requires_grad_()
+            loss, p, dflat, drows = value_and_grad(
+                params, rows_exp, lambda r: r, x, ls_mask, targets, t_count, b_loc
             )
-            embed_acc[u_idx] = acc_rows
+            _hot_cold_update(cache, touched, uniq_slots[ginv.long()], drows, hot_slots,
+                             lr_embeds, cfg, trash)
         else:
-            delta = -lr_embeds * d_rows_u
-        # valid unique rows are a prefix of the bucket, [trash, uniq...,
-        # trash-pad]: position 0's delta is the masked lanes' gradient,
-        # exactly zero; the count stays on the device
-        nv = uniq_counts.sum() + 1
-        scatter_add_rows(cache, uniq_slots, delta, nv)
-        _mark_touched(touched, uniq_slots, trash)
+            rows_u = gather_rows(cache, uniq_slots).requires_grad_()  # [Ub, D]
+            # the expand's backward (gather_rows' index_add_rows) segment-sums
+            # duplicate-lookup gradients into [Ub, D], as the take's
+            # transpose does in cdlrm_tpu (step.py:779-787)
+            loss, p, dflat, d_rows_u = value_and_grad(
+                params, rows_u, lambda r: gather_rows(r, ginv), x, ls_mask, targets,
+                t_count, b_loc,
+            )
+            if adagrad:
+                # the row-wise state rides along at the same unique slots
+                # (cdlrm_tpu step.py:789-803). The bucket repeats the trash
+                # row in its padding (and at position 0 of the default
+                # layout); those lanes carry exactly zero gradients, so each
+                # duplicate writes the same value, the trash row's state
+                # unchanged (+ mean(0^2))
+                u_idx = uniq_slots.long()
+                delta, acc_rows = _rowwise_adagrad_scale(
+                    d_rows_u, embed_acc[u_idx], lr_embeds, cfg.adagrad_eps
+                )
+                embed_acc[u_idx] = acc_rows
+            else:
+                delta = -lr_embeds * d_rows_u
+            # valid unique rows are a prefix of the bucket, the count on the
+            # device: [trash, uniq..., trash-pad] (position 0's delta is the
+            # masked lanes' gradient, exactly zero), or on the sorted wire
+            # [uniq..., trash-pad] (cdlrm_tpu step.py:812-818)
+            nv = uniq_counts.sum() + (0 if cfg.sorted_wire else 1)
+            scatter_add_rows(cache, uniq_slots, delta, nv)
+            _mark_touched(touched, uniq_slots, trash)
         params, dense_acc, loss_sum, correct = _finish(
             cfg, params, dflat, p, loss, targets, lr, b_loc, dense_acc, group
         )
@@ -601,7 +725,7 @@ def make_cached_train_step(
         t_count = inv_wire.shape[0]
         p_trash = pend.shape[0] - 1  # host contract: the last pending row
         _stage_aux(cache, aux_slots, aux_rows, trash)
-        uniq_slots, ginv = _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts)
+        uniq_slots, ginv = _decode_dedup_raw(inv_wire, uniq_wire, uniq_counts, cfg.sorted_wire)
         rows_u = gather_rows(cache, uniq_slots)  # [Ub, D]
         # the block's not yet flushed updates live in pending; pad, aux and
         # trash ranks read the pending trash row, which stays exactly +0.0
@@ -656,17 +780,20 @@ def make_cached_train_step(
     n_in = 8 if cfg.dedup else 6
 
     n_state = 2 if adagrad else 0
+    n_extra = n_state + (1 if hot else 0)
 
     def scanned(params, cache, *rest, touched=None):
-        # the optimizer state is carried through the block, as cdlrm_tpu's
-        # scan carries it (step.py:1017-1043)
-        flat, state, (lr, lr_embeds) = rest[: -2 - n_state], rest[-2 - n_state: -2], rest[-2:]
+        # after the per-batch inputs: the window's hot list, the same for
+        # every step, or the optimizer state, carried through the block as
+        # cdlrm_tpu's scan carries it (step.py:1009-1043)
+        flat, extra, (lr, lr_embeds) = rest[: -2 - n_extra], rest[-2 - n_extra: -2], rest[-2:]
+        hot_in, state = extra[: len(extra) - n_state], extra[len(extra) - n_state:]
         if len(flat) != block * n_in:
             raise ValueError(f"{len(flat)} block inputs, want {block} x {n_in}")
         losses, corrs = [], []
         for j in range(block):
             params, cache, *out = single(
-                params, cache, *flat[j * n_in: (j + 1) * n_in], *state, lr, lr_embeds,
+                params, cache, *flat[j * n_in: (j + 1) * n_in], *hot_in, *state, lr, lr_embeds,
                 touched=touched,
             )
             *state, loss_sum, correct = out

@@ -15,17 +15,16 @@ seed give the same masters, weights, probes, wire bytes and window plans as
 cdlrm_tpu, so the two train the same trajectory, and a cdlrm_tpu checkpoint
 serves here unchanged.
 
-Ported: construction, ``train`` (SGD, and AdaGrad with its row-wise state
-beside the cache, optionally round-tripped through the host
-``AccumulatorStore``; the plain wire and the packed and unpacked dedup
-wires, chosen per window; scan blocks of ``scan_steps`` steps, capped at
-window and cadence boundaries, with the block-coalesced update on the
-unpacked dedup wire; the refill prestager; the checkpoint cadence),
-``evaluate`` (the pipelined ``--inference-only`` path), ``refill`` of one
-insert plan, ``save_checkpoint`` (cdlrm_tpu's single-host format v3,
-optionally written on a background thread), ``load_checkpoint`` and
-``close``. What is not, ``_check_slice`` refuses (ROADMAP.md queue 1 names
-where each comes).
+Ported: construction, ``train`` (SGD, with or without the hot tier, and
+AdaGrad with its row-wise state beside the cache, optionally round-tripped
+through the host ``AccumulatorStore``; the plain wire and the packed,
+unpacked and sorted unpacked dedup wires, chosen per window; scan blocks of
+``scan_steps`` steps, capped at window and cadence boundaries, with the
+block-coalesced update on the unpacked dedup wire; the refill prestager; the
+checkpoint cadence), ``evaluate`` (the pipelined ``--inference-only`` path),
+``refill`` of one insert plan, ``save_checkpoint`` (cdlrm_tpu's single-host
+format v3, optionally written on a background thread), ``load_checkpoint``
+and ``close``: every field that cdlrm_tpu's trainer implements.
 
 Data parallelism (``world_size`` > 1) takes the shape of cdlrm_tpu's
 multi-host design: every rank streams the same batches, runs its own
@@ -326,21 +325,6 @@ class CheckpointWriter:
             raise RuntimeError(f"async checkpoint write failed: {err!r}") from err
 
 
-def _check_slice(cfg: Config) -> None:
-    """Refuse the config fields this port does not implement yet, rather
-    than ignore them (ROADMAP.md queue 1 names where each comes)."""
-    unsupported = {
-        "hot_tier_rows > 0 (hot tier)": cfg.hot_tier_rows > 0,
-        "sorted_dedup_wire": cfg.sorted_dedup_wire,
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
-        raise ValueError(
-            "cdlrm_tpu_torch does not implement " + ", ".join(bad)
-            + " yet (ROADMAP.md queue 1)"
-        )
-
-
 class CachedDlrmTrainer:
     """Cached DLRM on one device, or one rank of a data-parallel run:
     training and serving."""
@@ -365,7 +349,6 @@ class CachedDlrmTrainer:
         self.test_dataset = test_dataset
         self.device = torch.device(device)
         use_device(self.device)
-        _check_slice(cfg)
         self.group = group if group is not None else make_dp_mesh(cfg.world_size)
         self.ndev = self.group.world_size
         if self.ndev != cfg.world_size:
@@ -407,6 +390,9 @@ class CachedDlrmTrainer:
         rows_per_table = self.geo.ways * self.geo.sets + self.geo.aux_capacity
         self._wire_bits = step_lib.wire_width(int(rows_per_table.max()) - 1)
         self._wire_pack = bool(cfg.pack_wire and self._wire_bits <= step_lib.WIRE_MAX_BITS)
+        # the sorted unique list rides the unpacked dedup wire only (cdlrm_tpu
+        # trainer.py:527-530): the dedup steps take it, the plain ones never
+        self._sorted_wire = bool(cfg.sorted_dedup_wire and not self._wire_pack)
         if cfg.qr_flag:
             # cdlrm_tpu's error (trainer.py:285-294)
             raise ValueError(
@@ -531,9 +517,16 @@ class CachedDlrmTrainer:
             1 + len(cfg.ln_emb) * b_loc * max(1, pooled_width), min_size=1024
         )
         self._dedup_bucket_window: Optional[int] = None
-        # shadow window stats: the negotiated buckets of scan blocks and the
-        # auto-dedup decision read them (cdlrm_tpu trainer.py:675-678)
-        self._need_stats = self._scan_block > 1 or self._dedup_auto
+        # hot tier (cdlrm_tpu trainer.py:665-670): the window's hot list on
+        # the device and its cold bucket, both from the shadow stats; H is at
+        # least 8, its last position reserved for the trash row
+        self._hot = max(8, cfg.hot_tier_rows) if cfg.hot_tier_rows > 0 else 0
+        self._hot_slots_dev: Optional[torch.Tensor] = None
+        self._cold_bucket_window: Optional[int] = None
+        # shadow window stats: the negotiated buckets of scan blocks, the
+        # auto-dedup decision and the hot tier read them (cdlrm_tpu
+        # trainer.py:675-678)
+        self._need_stats = self._scan_block > 1 or self._dedup_auto or self._hot > 0
         scfg = step_lib.StepConfig(
             interaction_op=cfg.arch_interaction_op,
             interaction_itself=cfg.arch_interaction_itself,
@@ -557,7 +550,7 @@ class CachedDlrmTrainer:
             md_train_mask=md_mask,
         )
         self.step_cfg = scfg
-        self._step_cache: dict = {}  # (size, dedup, coalesce) -> step (_get_step)
+        self._step_cache: dict = {}  # (size, dedup, coalesce[, cold]) -> step (_get_step)
         # the eval wire is always the plain slot wire (cdlrm_tpu
         # trainer.py:475-478): no dedup variant is needed to serve
         self.eval_step = step_lib.make_cached_eval_step(self.geo, scfg, self.pooled_width)
@@ -925,6 +918,21 @@ class CachedDlrmTrainer:
         if self._dedup_auto and stats.total_lookups > 0:
             thresh = 0.5 if self._wire_pack else 0.75
             self._dedup = stats.total_uniq <= thresh * stats.total_lookups
+        if self._hot:
+            # the window's hot list (cdlrm_tpu trainer.py:1009-1042), padded
+            # with the trash row, which stays at the last position (masked
+            # lookups resolve there and take no cold lane), and below it with
+            # distinct rows descending from the trash row, so that a short
+            # list does not repeat one row; the exactly negotiated cold bucket
+            hs = window.hot_slots if window.hot_slots is not None else np.zeros(0, np.int64)
+            arr = np.full(self._hot, self.geo.trash_row, np.int64)
+            n = min(hs.size, self._hot - 1)
+            arr[:n] = hs[:n]
+            npad = self._hot - 1 - n
+            if npad > 0:
+                arr[n:-1] = (self.geo.trash_row - 1 - np.arange(npad)) % max(1, self.geo.trash_row)
+            self._hot_slots_dev = self._to_device(np.sort(arr).astype(np.int32))
+            self._cold_bucket_window = pow2_bucket(max(stats.worst_cold, 1), min_size=64)
 
     # ------------------------------------------------------------------- batch
     def _pack_aux(self, aux_slots_in: np.ndarray, aux_rows_in: np.ndarray, key: str):
@@ -1071,19 +1079,23 @@ class CachedDlrmTrainer:
         ranks (-1 masked) and int32 global rows ``[trash, uniq..., trash-pad]``
         (``probe_dedup_raw``). The unique bucket is a power of two: the
         window's negotiated one under scan blocks, else a running maximum.
-        With the block-coalesced update the host unique list rides along
-        for _build_block_union."""
+        The sorted wire (``sorted_dedup_wire``, unpacked only) lays the
+        ascending unique rows out from position 0 instead,
+        ``[uniq..., trash-pad]``, the ranks remapped by the probe (cdlrm_tpu
+        trainer.py:1186-1197). With the block-coalesced update the host
+        unique list rides along for _build_block_union."""
         if self._wire_pack:
             probe = functools.partial(self.controller.probe_dedup, inv_bits=self._inv_bits)
         else:
-            probe = self.controller.probe_dedup_raw
+            probe = functools.partial(self.controller.probe_dedup_raw, sort=self._sorted_wire)
         lookups = self._num_lookups(batch)
         batch = self._local(batch)
         dr = self._probe(batch, probe, self._train_master())
         stats = _ProbeStats(batch.ls_i.shape[0])
         stats.add(dr.hit_counts, lookups)
         u, cnt = dr.uniq, dr.uniq_counts
-        # +1 for the reserved trash rank
+        # +1 for the reserved trash rank, or on the sorted wire the trailing
+        # trash slot that masked ranks point at
         if self._scan_block > 1:
             ub = (self._dedup_bucket_window if self._dedup_bucket_window is not None
                   else self._dedup_bucket)
@@ -1103,7 +1115,10 @@ class CachedDlrmTrainer:
                 uniq_wire = step_lib.pack_slots(vals[None, :], np.zeros(1, np.int64), -1, bits)[0]
         else:
             uniq_wire = np.full(ub, self.geo.trash_row, np.int32)
-            uniq_wire[1: 1 + u.size] = u
+            if self._sorted_wire:
+                uniq_wire[: u.size] = u
+            else:
+                uniq_wire[1: 1 + u.size] = u
         aux = self._pack_aux(dr.aux_slots, dr.aux_rows, "train")
         wire = (dr.inv_wire, uniq_wire, cnt.astype(np.int32))
         blockinfo = (u, cnt, ub) if self._block_coalesce and not self._wire_pack else None
@@ -1135,10 +1150,11 @@ class CachedDlrmTrainer:
             start_epoch=epoch0,
             skip_batches=(j0 // cfg.lookahead) * cfg.lookahead,
             shadow=self.controller.clone(),
-            # the window's miss and unique counts (_apply_window_stats),
-            # the worst over every replica's slice: the same on every rank
+            # the window's miss, unique and cold counts and its hot list
+            # (_apply_window_stats), the worst over every replica's slice:
+            # the same on every rank
             stats_spec=(
-                (self.ndev, cfg.local_batch_size, self._dedup or self._dedup_auto, 0)
+                (self.ndev, cfg.local_batch_size, self._dedup or self._dedup_auto, self._hot)
                 if self._need_stats else None
             ),
             skip_first_plan=(j0 % cfg.lookahead != 0),
@@ -1163,14 +1179,20 @@ class CachedDlrmTrainer:
     def _get_step(self, size: int, dedup: bool, coalesce: bool = False):
         """The train step for ``size`` consecutive batches (1: a single
         step; more: a scan block) in the given wire, with or without the
-        block-coalesced update; built once per (size, dedup, coalesce), as
-        cdlrm_tpu's compiled steps are (trainer.py:1575)."""
-        key = (size, dedup, coalesce)
+        block-coalesced update; built once per (size, dedup, coalesce), and
+        with the hot tier per window cold bucket too, as cdlrm_tpu's compiled
+        steps are (trainer.py:1575-1595). Only the dedup steps take the
+        sorted wire."""
+        cold = self._cold_bucket_window if self._hot else 0
+        key = (size, dedup, coalesce) + ((cold,) if self._hot else ())
         fn = self._step_cache.get(key)
         if fn is None:
+            scfg = self.step_cfg._replace(dedup=dedup, block_coalesce=coalesce,
+                                          sorted_wire=dedup and self._sorted_wire)
+            if self._hot:
+                scfg = scfg._replace(hot_rows=self._hot, cold_bucket=cold)
             fn = self._step_cache[key] = step_lib.make_cached_train_step(
-                self.geo, self.step_cfg._replace(dedup=dedup, block_coalesce=coalesce),
-                self.pooled_width, block=size, group=self.group,
+                self.geo, scfg, self.pooled_width, block=size, group=self.group,
             )
         return fn
 
@@ -1192,10 +1214,11 @@ class CachedDlrmTrainer:
         step's (unique slots, per-table counts, unique bucket). Unions the
         block's unique cache rows, aux-region and trash rows excluded, and
         emits each step's block-rank row aligned with its staged unique list
-        (position 0 and the padding, and every aux or trash slot, rank to the
-        pending trash row, the last). Returns the device tensors (rank rows
-        [ub] int32 per step, the sorted union trash-padded to a power-of-two
-        bucket [Pb] int32, its length [1] int32).
+        (position 0 of the default layout, the padding, and every aux or
+        trash slot rank to the pending trash row, the last). Returns the
+        device tensors (rank rows [ub] int32 per step, the sorted union
+        trash-padded to a power-of-two bucket [Pb] int32, its length [1]
+        int32).
 
         The union is a bitmap over the cache's rows: the native
         kernels (``mask_bits``, ``block_union``, ``block_ranks``,
@@ -1246,14 +1269,17 @@ class CachedDlrmTrainer:
             blk_slots = np.full(p_bucket, geo.trash_row, np.int32)
             blk_slots[: union.size] = union
             blk_counts = np.array([union.size], np.int32)
+            # the step's unique rows start at position 1, or 0 on the sorted
+            # wire (cdlrm_tpu trainer.py:1729)
+            base = 0 if self._sorted_wire else 1
             if use_native:
-                rows = native.block_ranks(cat, off, rmap, p_trash, ub, 1)
+                rows = native.block_ranks(cat, off, rmap, p_trash, ub, base)
             else:
                 rows = np.full((len(infos), ub), p_trash, np.int32)
                 for i, info in enumerate(infos):
                     r = rmap[info[0]]
                     # aux and trash slots are never in the union: -1 -> trash
-                    rows[i, 1: 1 + r.size] = np.where(r < 0, p_trash, r)
+                    rows[i, base: base + r.size] = np.where(r < 0, p_trash, r)
         finally:
             # restore the map's all -1 precondition whatever raised above
             if union is not None and use_native:
@@ -1378,12 +1404,13 @@ class CachedDlrmTrainer:
         wire_dedup = None  # wire of the batches since the last boundary
 
         def run_step(step, args):
-            """Call a train step with the optimizer state after the batch
-            inputs, and keep what it returns (cdlrm_tpu
-            trainer.py:1951-1999); returns (loss_sum, correct)."""
+            """Call a train step with the window's hot list or the optimizer
+            state after the batch inputs, and keep what it returns (cdlrm_tpu
+            trainer.py:1948-1999); returns (loss_sum, correct)."""
             if not self._adagrad:
+                hot_extra = (self._hot_slots_dev,) if self._hot else ()
                 self.params, self.cache, loss, corr = step(
-                    self.params, self.cache, *args, self._lr, self._lr_emb,
+                    self.params, self.cache, *args, *hot_extra, self._lr, self._lr_emb,
                     touched=self.touched,
                 )
                 return loss, corr

@@ -47,7 +47,12 @@ with the window-row exchange hoisted mid-window, the first window's exchanged
 rows and the first eval batch's fetched rows held to the masters' values
 computed from the seed, the written-back rows to the evicted ones, then an
 eval pass, per-rank checkpoint files that a fresh pair loads bit-equal, and
-one step of each rank against the CPU. Each run
+one step of each rank against the CPU; and (phase 14) (n) run (d) with the
+hot tier (``hot_tier_rows`` 4096), a block of it against the CPU and one
+step with the hot tier against one without from the same state, after a
+small call whose hot list holds one row twice, held bit-equal to the CPU,
+and (o) run (c) on the sorted unpacked dedup wire, a block against the CPU
+and one step against the default layout from the same state. Each run
 resets every kernel's launch count just before it and reads them just after.
 One serving batch, one train step of each cached run, one coalesced block,
 one full-table step and one full-table AdaGrad step are checked against the
@@ -915,30 +920,42 @@ def check_block(card: str, tr, ds, total: int) -> dict:
     return dict(block_ms=block_ms, per_step_ms=per_step_ms)
 
 
-def block_run(card: str, dev: torch.device, coalesce: str) -> dict:
+def block_run(card: str, dev: torch.device, coalesce: str, label: str = "", check=None,
+              **cfg_kw) -> dict:
     """One training run with bench.py's flags (scan blocks, unpacked wires,
     auto-dedup, lookahead 20) on its loguniform stream: BLOCK_WARM_STEPS
     steps of set-up, then BLOCK_STEPS counted steps with every launch count
     reset just before them. The lookahead and the step counts are multiples
     of SCAN_STEPS and no cadence falls inside, so every counted block is a
-    full one. With the block-coalesced update, check_block follows."""
+    full one. With the block-coalesced update, check_block follows, then
+    ``check(tr, ds, total)`` where given. ``cfg_kw`` adds config fields
+    (phase 14's hot tier and sorted wire) and ``label`` names the run
+    (by default (c) coalesced, (d) not). The counted run's windows are
+    recorded: the hot rows selected, the worst cold count and the cold
+    bucket adopted."""
     from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
 
     cfg = headline_config(
         scan_steps=SCAN_STEPS, pack_wire=False, dedup_lookups="auto",
         block_coalesced_update=coalesce, lookahead=BLOCK_LOOKAHEAD, print_freq=1 << 30,
+        **cfg_kw,
     )
     total = BLOCK_WARM_STEPS + BLOCK_STEPS
     ds = LogUniformStream(total + BLOCK_LOOKAHEAD, seed=SEED + 3)
     tr = CachedDlrmTrainer(cfg, ds, device=dev)
-    blocks = []
-    get_step = tr._get_step
+    blocks, windows = [], []
+    get_step, apply_stats = tr._get_step, tr._apply_window_stats
 
     def recording_get_step(size, dedup, coalesced=False):
         blocks.append((size, dedup, coalesced))
         return get_step(size, dedup, coalesced)
 
-    tr._get_step = recording_get_step
+    def recording_stats(window):
+        apply_stats(window)
+        windows.append((0 if window.hot_slots is None else int(window.hot_slots.size),
+                        window.stats.worst_cold, tr._cold_bucket_window))
+
+    tr._get_step, tr._apply_window_stats = recording_get_step, recording_stats
     try:
         t0 = time.perf_counter()
         m = tr.train(max_steps=BLOCK_WARM_STEPS)
@@ -948,6 +965,7 @@ def block_run(card: str, dev: torch.device, coalesce: str) -> dict:
                     "caching_overhead_s")
         before = [getattr(m, c) for c in counters]
         blocks.clear()
+        windows.clear()
         reset_launches()
         t0 = time.perf_counter()
         tr.train(max_steps=total)
@@ -962,10 +980,13 @@ def block_run(card: str, dev: torch.device, coalesce: str) -> dict:
         wire = tr._dedup
     finally:
         tr.close()
-    run = "c" if cfg.block_coalesced_update else "d"
+    coalesced = bool(cfg.block_coalesced_update)
+    run = label or ("c" if coalesced else "d")
     loss, hit = loss_sum / examples, hits / lookups
+    flags = "".join(f", {k}={v}" for k, v in cfg_kw.items())
     print(f"[{card}] train ({run}) scan_steps={SCAN_STEPS}, unpacked wires, "
-          f"block_coalesced_update={coalesce}: {BLOCK_STEPS} steps of {BATCH} in {wall:.3f} s "
+          f"block_coalesced_update={coalesce}{flags}: {BLOCK_STEPS} steps of {BATCH} in "
+          f"{wall:.3f} s "
           f"host wall, {BLOCK_STEPS * BATCH / wall:.1f} examples/s "
           f"({1000 * wall / BLOCK_STEPS:.2f} ms/step incl. {refills} refills that held the "
           f"train thread {refill_s:.3f} s in all; set-up {warm:.2f} s for {BLOCK_WARM_STEPS} "
@@ -976,10 +997,13 @@ def block_run(card: str, dev: torch.device, coalesce: str) -> dict:
     assert refills > 0, "no refill in the counted steps"
     assert wire, "the loguniform stream should take the dedup wire"
     n_blocks = BLOCK_STEPS // SCAN_STEPS
-    assert counted == [(SCAN_STEPS, True, run == "c")] * n_blocks, counted
-    out = dict(launches=launches, blocks=n_blocks)
-    if run == "c":
+    assert counted == [(SCAN_STEPS, True, coalesced)] * n_blocks, counted
+    out = dict(launches=launches, blocks=n_blocks, examples_s=BLOCK_STEPS * BATCH / wall,
+               windows=windows)
+    if coalesced:
         out.update(check_block(card, tr, ds, total))
+    if check is not None:
+        out.update(check(card, tr, ds, total))
     return out
 
 
@@ -2066,6 +2090,241 @@ def multi_host(card: str) -> dict:
     return {"launches": launches}
 
 
+# Phase 14: the hot tier (n) on (d)'s flags and the sorted wire (o) on (c)'s.
+# At H = HOT_ROWS the hot list's pads stay inside the last table's aux rows
+# (BATCH of them), so the duplicated pad that a short list can put on a way
+# row is checked at a small shape of its own (check_hot_pad)
+HOT_ROWS = 4096
+# a step with and without the hot tier, or on the sorted and the default
+# unique layout, from the same state on the card: the same sums in another
+# order (the hot and cold adds against the unique-row add; the atomics of the
+# gather backward), so the caches lie within HOT_TOL of each other relative
+# to the cache's largest value, the parameters within HOT_TOL relative and
+# 1e-6 absolute (tests/test_torch_hot_tier.py's tolerance for the dense
+# parameters), the sorted and unsorted caches within ADD_TOL absolute
+HOT_TOL = 1e-5
+
+
+def _clone_state(tr) -> tuple:
+    from cdlrm_tpu_torch.models.dlrm import map_params
+
+    return map_params(lambda t: t.clone(), tr.params), tr.cache.clone()
+
+
+def _params_close(a, b, rtol: float, atol: float) -> float:
+    """max |a - b| over the parameters, asserting |a - b| <= atol + rtol |b|."""
+    from cdlrm_tpu_torch.models.dlrm import param_leaves
+
+    worst = 0.0
+    for x, y in zip(param_leaves(a), param_leaves(b)):
+        diff = (x - y).abs()
+        assert bool((diff <= atol + rtol * y.abs()).all()), float(diff.max())
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def check_hot_pad(card: str, dev: torch.device) -> None:
+    """_hot_cold_update on the card against the CPU at a small shape whose
+    hot list holds one row twice: tests/test_torch_hot_tier.py's geometry (3
+    tables, 37 sets, 4 ways, 8 aux rows), 4 selected rows padded as the
+    trainer pads a short list, so that pads run past the last table's aux
+    rows onto its way rows, one of which is selected. Integer gradients and
+    cache values and lr 0.5 make every sum exact in any order, so the card's
+    atomics must give the CPU's bits: a repeated row that lost its update
+    in a race would not."""
+    from cdlrm_tpu_torch.cache.geometry import CacheGeometry
+    from cdlrm_tpu_torch.train import step as step_lib
+
+    geo = CacheGeometry.build([60, 30, 80], DIM, 32, 4, 8)
+    rng = np.random.default_rng(SEED + 14)
+    trash, h, n_sel = geo.trash_row, 16, 4
+    pads = (trash - 1 - np.arange(h - 1 - n_sel)) % trash
+    ways = np.concatenate([np.arange(geo.table_offsets[t], geo.aux_base(t)) for t in range(3)])
+    twice = np.intersect1d(pads, ways)[:1]
+    sel = np.concatenate([twice, rng.choice(np.setdiff1d(ways, pads), n_sel - 1, replace=False)])
+    hot = np.sort(np.concatenate([sel, pads, [trash]])).astype(np.int32)
+    assert np.unique(hot).size == h - 1, hot
+    n = 4096
+    kind = rng.random(n)
+    flat = np.where(kind < 0.5, rng.choice(sel, n),
+                    np.where(kind < 0.85, rng.integers(0, trash, n), trash)).astype(np.int32)
+    drows = rng.integers(-8, 9, (n, DIM)).astype(np.float32)
+    drows[flat == trash] = 0.0
+    cache = rng.integers(-100, 101, (geo.total_rows, DIM)).astype(np.float32)
+    touched = (rng.random(geo.total_rows) < 0.1).astype(np.uint8)
+    touched[trash] = 0
+    cold = int((~np.isin(flat, hot)).sum())
+    cfg = step_lib.StepConfig(hot_rows=h, cold_bucket=1 << int(np.ceil(np.log2(cold))))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        c = torch.from_numpy(cache.copy()).to(where)
+        t = torch.from_numpy(touched.copy()).to(where)
+        step_lib._hot_cold_update(c, t, torch.from_numpy(flat).to(where),
+                                  torch.from_numpy(drows).to(where),
+                                  torch.from_numpy(hot).to(where), 0.5, cfg, trash)
+        out[where.type] = (c.cpu(), t.cpu())
+    (c_dev, t_dev), (c_cpu, t_cpu) = out[dev.type], out["cpu"]
+    row = int(twice[0])
+    moved = float((c_cpu[row] - torch.from_numpy(cache[row])).abs().max())
+    assert moved > 0, "the repeated hot row took no update"
+    assert torch.equal(c_dev, c_cpu), float((c_dev - c_cpu).abs().max())
+    assert torch.equal(t_dev, t_cpu), "touched masks differ"
+    print(f"[{card}] _hot_cold_update with hot row {row} twice in a list of {h} "
+          f"({int((flat == row).sum())} of {n} lanes on it, {cold} cold lanes, bucket "
+          f"{cfg.cold_bucket}), D={DIM}: cache and touched mask bit-equal to the CPU's "
+          f"(integer data: exact sums in any order)")
+
+
+def _cold_lanes(inputs, hot_slots: torch.Tensor, sorted_wire: bool) -> int:
+    """The cold lookups of one staged dedup batch: lanes whose row is not in
+    the hot list."""
+    from cdlrm_tpu_torch.train import step as step_lib
+
+    uniq, ginv = step_lib._decode_dedup_raw(inputs[1], inputs[3], inputs[4], sorted_wire)
+    flat = uniq[ginv.long()].contiguous()
+    pos = torch.searchsorted(hot_slots, flat).clamp_(max=hot_slots.shape[0] - 1)
+    return int((hot_slots[pos] != flat).sum())
+
+
+def check_hot(card: str, tr, ds, total: int) -> dict:
+    """Run (n)'s checks over its last trained batches (resident ids; the
+    pipeline threads are stopped): one step with and without the hot tier
+    from the same state on the card; one block of CHECK_BLOCK hot steps on
+    the card against the port on the CPU; the block's device time beside
+    the same steps without the hot tier."""
+    from cdlrm_tpu_torch.train import step as step_lib
+
+    batches = list(itertools.islice(ds.batches(), total))[-CHECK_BLOCK:]
+    items = [tr._assemble(b, BATCH) for b in batches]
+    assert all(dedup for _, _, dedup, _ in items), "the hot run left the dedup wire"
+    hot_slots = tr._hot_slots_dev
+    colds = [_cold_lanes(it[0], hot_slots, False) for it in items]
+    assert max(colds) <= tr._cold_bucket_window, (colds, tr._cold_bucket_window)
+    off_cfg = tr.step_cfg._replace(dedup=True)
+    # one step, hot and not, from the same state
+    p_hot, c_hot = _clone_state(tr)
+    p_off, c_off = _clone_state(tr)
+    reset_launches()
+    p_hot, c_hot, l_hot, _ = tr._get_step(1, True)(p_hot, c_hot, *items[0][0], hot_slots,
+                                                   tr._lr, tr._lr_emb)
+    torch.cuda.synchronize()
+    hot_launches = read_launches()
+    p_off, c_off, l_off, _ = step_lib.make_cached_train_step(tr.geo, off_cfg, tr.pooled_width)(
+        p_off, c_off, *items[0][0], tr._lr, tr._lr_emb)
+    cache_rel = float((c_hot - c_off).abs().max()) / float(c_off.abs().max())
+    param_err = _params_close(p_hot, p_off, HOT_TOL, 1e-6)
+    loss_err = abs(float(l_hot) - float(l_off)) / BATCH
+    assert cache_rel <= HOT_TOL and loss_err <= HOT_TOL, (cache_rel, loss_err)
+    del p_hot, c_hot, p_off, c_off
+    # one block against the CPU
+    args = [a for it in items for a in it[0]]
+    step = tr._get_step(CHECK_BLOCK, True)
+    params_cpu, cache_cpu = _cpu_copy(tr.params), tr.cache.to("cpu", copy=True)
+    p_dev, c_dev, l_dev, _ = step(tr.params, tr.cache, *args, hot_slots, tr._lr, tr._lr_emb)
+    p_cpu, c_cpu, l_cpu, _ = step(params_cpu, cache_cpu, *[a.cpu() for a in args],
+                                  hot_slots.cpu(), tr._lr, tr._lr_emb)
+    assert l_dev.shape == (CHECK_BLOCK,) and bool(torch.isfinite(c_dev).all())
+    cache_err = _max_row_err(c_dev, c_cpu)
+    block_param_err = _max_param_err(p_dev, p_cpu)
+    block_loss_err = float((l_dev.cpu() - l_cpu).abs().max()) / BATCH
+    del c_cpu, cache_cpu
+    assert max(cache_err, block_param_err, block_loss_err) <= SCORE_TOL, (
+        cache_err, block_param_err, block_loss_err)
+    block_ms = time_ms(lambda: step(tr.params, tr.cache, *args, hot_slots, tr._lr, tr._lr_emb),
+                       10)
+    off_block = step_lib.make_cached_train_step(tr.geo, off_cfg, tr.pooled_width,
+                                                block=CHECK_BLOCK)
+    off_ms = time_ms(lambda: off_block(tr.params, tr.cache, *args, tr._lr, tr._lr_emb), 10)
+    print(f"  hot list: {int((hot_slots != tr.geo.trash_row).sum())} rows of H={tr._hot} "
+          f"(the last the trash row), cold bucket {tr._cold_bucket_window}; cold lookups in "
+          f"the {CHECK_BLOCK} checked steps {colds} of {items[0][0][1].numel()}; one step "
+          f"with and without the hot tier from the same state: max |cache difference| / "
+          f"max |cache| {cache_rel:.3e}, |param difference| {param_err:.3e}, |loss "
+          f"difference| {loss_err:.3e} (tolerance {HOT_TOL}); kernel launches of the one hot "
+          f"step {hot_launches}")
+    print(f"  one block of {CHECK_BLOCK} hot steps vs the CPU run: max |cache difference| "
+          f"{cache_err:.3e}, |param difference| {block_param_err:.3e}, |loss difference| "
+          f"{block_loss_err:.3e} (tolerance {SCORE_TOL}); device time {block_ms:.3f} ms by "
+          f"events, the same {CHECK_BLOCK} steps without the hot tier {off_ms:.3f} ms")
+    return dict(step_launches=hot_launches, block_ms=block_ms, per_step_ms=off_ms)
+
+
+def check_sorted(card: str, tr, ds, total: int) -> dict:
+    """Run (o)'s check after check_block: the last trained batch staged on
+    the sorted and on the default layout, one step of each from the same
+    state on the card."""
+    from cdlrm_tpu_torch.train import step as step_lib
+
+    batch = list(itertools.islice(ds.batches(), total))[-1]
+    staged = {}
+    for srt in (True, False):
+        tr._sorted_wire = srt
+        inputs, _, dedup, _ = tr._assemble(batch, BATCH)
+        assert dedup
+        staged[srt] = inputs
+    tr._sorted_wire = True
+    assert not torch.equal(staged[True][3], staged[False][3]), "the layouts should differ"
+    res, steps = {}, {}
+    for srt in (True, False):
+        steps[srt] = step = step_lib.make_cached_train_step(
+            tr.geo, tr.step_cfg._replace(dedup=True, sorted_wire=srt), tr.pooled_width)
+        params, cache = _clone_state(tr)
+        reset_launches()
+        params, cache, loss, _ = step(params, cache, *staged[srt], tr._lr, tr._lr_emb)
+        torch.cuda.synchronize()
+        res[srt] = (params, cache, float(loss), read_launches())
+    (p_s, c_s, l_s, launches), (p_u, c_u, l_u, _) = res[True], res[False]
+    cache_err = float((c_s - c_u).abs().max())
+    param_err = _params_close(p_s, p_u, HOT_TOL, 1e-6)
+    loss_err = abs(l_s - l_u) / BATCH
+    assert cache_err <= ADD_TOL and loss_err <= HOT_TOL, (cache_err, loss_err)
+    del res, p_s, c_s, p_u, c_u
+    # the two steps' device times, interleaved, each on a state of its own
+    # that its repeated steps move on
+    states = {srt: _clone_state(tr) for srt in (True, False)}
+    ms_s, ms_u = time_pair("one step, sorted/default layout", card,
+                           lambda: steps[True](*states[True], *staged[True], tr._lr, tr._lr_emb),
+                           lambda: steps[False](*states[False], *staged[False], tr._lr,
+                                                tr._lr_emb), what="sorted/default")
+    del states
+    print(f"  one step on the sorted and on the default layout from the same state: max "
+          f"|cache difference| {cache_err:.3e} (tolerance {ADD_TOL}), |param difference| "
+          f"{param_err:.3e}, |loss difference| {loss_err:.3e}; device step {ms_s:.3f} and "
+          f"{ms_u:.3f} ms by events (medians of {TIMING_ROUNDS} interleaved rounds); kernel "
+          f"launches of the one sorted step {launches}")
+    return dict(step_launches=launches)
+
+
+def hot_and_sorted(card: str, dev: torch.device, runs: dict) -> dict:
+    """Phase 14: (n) the hot tier (``hot_tier_rows`` HOT_ROWS) on (d)'s flags,
+    which the hot tier matches (it turns the coalesced update off under
+    'auto'), and (o) the sorted unpacked dedup wire on (c)'s flags, coalesced;
+    40 counted steps each, examples/s beside (d)'s and (c)'s of this call."""
+    t0 = time.perf_counter()
+    check_hot_pad(card, dev)
+    torch.cuda.empty_cache()
+    n = block_run(card, dev, "auto", label="n", check=check_hot, hot_tier_rows=HOT_ROWS)
+    torch.cuda.empty_cache()
+    o = block_run(card, dev, "auto", label="o", check=check_sorted, sorted_dedup_wire=True)
+    hot_rows, worst_cold, buckets = zip(*n["windows"])
+    print(f"[{card}] phase 14, examples/s of this call: (n) hot tier {n['examples_s']:.1f} "
+          f"against (d) {runs['d']['examples_s']:.1f}; (o) sorted wire {o['examples_s']:.1f} "
+          f"against (c) {runs['c']['examples_s']:.1f}; (n)'s counted windows: hot rows "
+          f"{list(hot_rows)}, worst cold lookups of a step {list(worst_cold)}, cold buckets "
+          f"{list(buckets)}; kernel launches of one step: hot tier {n['step_launches']}, "
+          f"sorted wire {o['step_launches']}; phase 14 took {time.perf_counter() - t0:.1f} s")
+    ln, lo = n["launches"], o["launches"]
+    # (n): three atomic adds a step (hot segment sum, H-row apply, cold add)
+    # and no unique-row add; (o): as (c)
+    assert ln["index_add_rows"] == 3 * BLOCK_STEPS and ln["scatter_add_rows"] == 0, ln
+    assert lo["scatter_add_rows"] == o["blocks"] and lo["index_add_rows"] == BLOCK_STEPS, lo
+    for launches in (ln, lo):
+        assert launches["gather_rows"] > 0 and launches["scatter_set_rows"] > 0, launches
+    assert n["step_launches"] == {"gather_rows": 3, "scatter_set_rows": 1, "scatter_add_rows": 0,
+                                  "index_add_rows": 3}, n["step_launches"]
+    return {"n": n, "o": o}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2077,6 +2336,7 @@ def main() -> int:
     from cdlrm_tpu_torch.cache.geometry import CacheGeometry
     from cdlrm_tpu_torch.ops import _build, native
 
+    t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 matmuls in float32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2114,9 +2374,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs["two_ranks"] = two_ranks(card, rows, dev)
     runs["multi_host"] = multi_host(card)
+    torch.cuda.empty_cache()
+    runs.update(hot_and_sorted(card, dev, runs))
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu")]
     assert not loaded, f"the port imported {loaded}"
+    print(f"[{card}] every phase passed in {time.perf_counter() - t_main:.1f} s, the builds "
+          f"included")
 
     sources = {"gather_rows": "cdlrm_tpu/ops/lookup.py:70",
                "scatter_set_rows": "cdlrm_tpu/ops/scatter.py:257",
@@ -2124,8 +2388,9 @@ def main() -> int:
                "index_add_rows": "cdlrm_tpu/ops/lookup.py:99"}
     # launches: the sum over the main-path runs (serving, training a to h,
     # full-table training with SGD, AdaGrad, QR and MD, the profiled run, the
-    # two ranks' runs k and l as their processes counted them), each counted
-    # from 0
+    # two ranks' runs k and l and the multi-host run m as their processes
+    # counted them, the hot-tier run n and the sorted-wire run o), each
+    # counted from 0
     launches = {name: served[name] + full["launches"][name] + full_ag["launches"][name]
                 + sum(run["launches"][name] for run in runs.values())
                 for name in KERNELS}

@@ -621,7 +621,7 @@ class _Stream:
                 yield item
 
 
-def _windows(pkg, stream, lookahead, want_uniq, skip=0):
+def _windows(pkg, stream, lookahead, want_uniq, skip=0, hot=0):
     host, geometry, master, _ = pkg
     prefetcher = jprefetcher if pkg is JAX else pprefetcher
     geo = geometry.CacheGeometry.build(LN_EMB, DIM, SETS, WAYS, AUX)
@@ -630,7 +630,7 @@ def _windows(pkg, stream, lookahead, want_uniq, skip=0):
     pf = prefetcher.LookaheadPrefetcher(
         cache_stream_fn=stream, master=tables, lookahead=lookahead, batch_fifo_size=8,
         cache_workers=2, skip_batches=skip, shadow=ctl.clone(),
-        stats_spec=(1, stream.batch, want_uniq, 0),
+        stats_spec=(1, stream.batch, want_uniq, hot),
     )
     pf.start()
     out = []
@@ -647,20 +647,27 @@ def _windows(pkg, stream, lookahead, want_uniq, skip=0):
     return out
 
 
-@pytest.mark.parametrize("pooled,want_uniq,skip", [(0, True, 0), (3, True, 0), (0, False, 4)],
-                         ids=["single", "pooled", "resumed"])
-def test_prefetcher_windows_equal(pooled, want_uniq, skip):
+@pytest.mark.parametrize("pooled,want_uniq,skip,hot", [
+    (0, True, 0, 0), (3, True, 0, 0), (0, False, 4, 0), (0, True, 0, 16), (3, False, 0, 16),
+], ids=["single", "pooled", "resumed", "hot", "pooled-hot"])
+def test_prefetcher_windows_equal(pooled, want_uniq, skip, hot):
     """The LookaheadPrefetcher's windows: uniques, master rows, the shadow
-    planner's spec, the window stats and the stream cursor, field by field."""
+    planner's spec, the window stats and the stream cursor, field by field;
+    with the hot tier (``hot`` = H) also the window's hot list (the H - 1
+    hottest resident rows, ``_select_hot``) and its worst cold count."""
     stream = _Stream(pooled=pooled)
-    jw = _windows(JAX, stream, 4, want_uniq, skip)
-    pw = _windows(PORT, stream, 4, want_uniq, skip)
+    jw = _windows(JAX, stream, 4, want_uniq, skip, hot)
+    pw = _windows(PORT, stream, 4, want_uniq, skip, hot)
     assert len(pw) == len(jw) == (12 - skip) // 4
     for p, j in zip(pw, jw):
         assert type(p).__module__ == "cdlrm_tpu_torch.cache.prefetcher"
         assert type(p.stats).__module__ == "cdlrm_tpu_torch.cache.host_cache"
         same(p, j, "window")
         assert p.stats.total_lookups > 0 and (p.stats.worst_uniq > 0) == want_uniq
+        if hot:
+            assert 0 < p.hot_slots.size <= hot - 1 and p.stats.worst_cold > 0
+        else:
+            assert p.hot_slots is None and p.stats.worst_cold == 0
     assert sum(w.plan_spec.evict_slots.size for w in pw) > 0  # later windows evicted
 
 

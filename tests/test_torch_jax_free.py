@@ -52,12 +52,15 @@ _TRAIN = _BLOCK_JAX + """
 import numpy as np
 from cdlrm_tpu_torch.config import Config, build_dataset
 from cdlrm_tpu_torch.train.trainer import CachedDlrmTrainer
-for pooled, dedup in ((1, "auto"), (1, "on"), (3, "on")):
+# the hot tier on the plain wire, then the sorted unpacked dedup wire
+for pooled, dedup, extra in ((1, "auto", {}), (1, "on", {}), (3, "on", {}),
+                             (1, "off", dict(hot_tier_rows=16)),
+                             (3, "on", dict(sorted_dedup_wire=True, pack_wire=False))):
     cfg = Config(arch_embedding_size="1000-500-2000", arch_sparse_feature_size=16,
                  arch_mlp_bot="13-32-16", arch_mlp_top="16-8-1", mini_batch_size=64,
                  num_batches=8, cache_size=128, num_ways=4, loss_function="bce",
                  num_indices_per_lookup=pooled, num_indices_per_lookup_fixed=pooled == 1,
-                 lookahead=2, print_freq=4, dedup_lookups=dedup, round_targets=True)
+                 lookahead=2, print_freq=4, dedup_lookups=dedup, round_targets=True, **extra)
     train_ds, test_ds, cfg = build_dataset(cfg)
     tr = CachedDlrmTrainer(cfg, train_ds, test_ds, device="cpu")
     tr.train(max_steps=8)
@@ -66,6 +69,7 @@ for pooled, dedup in ((1, "auto"), (1, "on"), (3, "on")):
     tr.close()
     assert tr.global_step == 8 and tr.metrics.refills == 4, tr.metrics
     assert tr.eviction_manager.rows_written > 0 and 0.0 <= acc <= 1.0
+    assert (tr._hot_slots_dev is not None) == bool(tr._hot)
 """ + _JAX_LOADED + "print('TRAINED')\n"
 
 _CLI = _BLOCK_JAX + """
@@ -121,8 +125,9 @@ def test_cli_serves_without_jax():
 
 def test_training_path_runs_without_jax():
     """train() with the plain and the packed dedup wire, single-index and
-    pooled bags: the prefetcher, the stager, the pipeline's dedup probe and
-    the eviction writeback all run with jax unimportable."""
+    pooled bags, a hot-tier run and a sorted-wire run: the prefetcher, the
+    stager, the pipeline's dedup probe and the eviction writeback all run
+    with jax unimportable."""
     res = _run(_TRAIN)
     assert res.returncode == 0, res.stderr
     assert "TRAINED" in res.stdout and "Step 8:" in res.stdout
@@ -260,13 +265,15 @@ def test_cli_trains_two_ranks_without_jax(tmp_path):
 
 
 def test_cli_refuses_training():
-    """The CLI trains now; what it refuses is training with a field the port
-    does not implement, before any data is read."""
+    """The CLI trains with every field of cdlrm_tpu's; what it refuses is
+    training with a combination that cdlrm_tpu refuses, in its words, before
+    any data is read."""
     from cdlrm_tpu_torch import cli
 
-    with pytest.raises(ValueError, match="does not implement.*hot_tier_rows"):
+    with pytest.raises(ValueError, match="optimizer='adagrad' is incompatible with the hot tier"):
         cli.main(["--device", "cpu", "--arch-embedding-size", "100-200",
-                  "--arch-sparse-feature-size", "2", "--hot-tier-rows", "64"])
+                  "--arch-sparse-feature-size", "2", "--hot-tier-rows", "64",
+                  "--optimizer", "adagrad", "--dedup-lookups", "on"])
 
 
 def _fields_equal(a: Config, b: JaxConfig):

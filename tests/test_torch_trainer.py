@@ -118,6 +118,10 @@ def test_port_refill_then_serve_hits():
 
 
 def test_unported_flags_are_refused():
+    """The port implements every field of cdlrm_tpu's trainer: what it
+    refuses is what cdlrm_tpu refuses. The hot tier and the sorted wire
+    (tests/test_torch_hot_tier.py, test_torch_sorted_wire.py) build here
+    beside the other variants."""
     ds = _ds(5, 1)
     # multi-host mode is ported (tests/test_torch_mh_trainer.py): with a
     # coordinator and one rank the trainer builds for one device
@@ -128,9 +132,11 @@ def test_unported_flags_are_refused():
     # QR tables with the cache raise cdlrm_tpu's own error (trainer.py:285-294)
     with pytest.raises(ValueError, match="qr_flag with the cached path"):
         CachedDlrmTrainer(_cfg(True, qr_flag=True), ds, ds, device="cpu")
-    # the wire and model variants are ported: these build
+    # the wire and model variants, the hot tier and the sorted wire are
+    # ported: these build
     for kw in (dict(md_flag=True), dict(wire_x_fp8=True), dict(wire_rows_bf16=True),
-               dict(enable_profiling=True)):
+               dict(enable_profiling=True), dict(hot_tier_rows=64),
+               dict(sorted_dedup_wire=True, pack_wire=False, dedup_lookups="on")):
         CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu").close()
     # training is ported: at the defaults the trainer builds and trains
     tr = CachedDlrmTrainer(_cfg(True), ds, ds, device="cpu")
@@ -139,23 +145,6 @@ def test_unported_flags_are_refused():
         assert tr.global_step == 1
     finally:
         tr.close()
-
-
-@pytest.mark.parametrize("kw,name", [
-    (dict(hot_tier_rows=64), "hot_tier_rows"),
-    (dict(sorted_dedup_wire=True, pack_wire=False, dedup_lookups="on"), "sorted_dedup_wire"),
-])
-def test_unimplemented_training_fields_are_refused(kw, name):
-    """Fields that train() would otherwise ignore are refused at
-    construction; serving with all of them at their defaults is pinned by
-    the tests above. Scan blocks, the unpacked dedup wire, use_cache=False
-    (routed to the full-table trainer by the CLI), AdaGrad, checkpoint
-    saves, the bf16 row wire, the fp8 dense wire, cached mixed-dimension
-    tables, profiling, world_size > 1 (tests/test_torch_dp_trainer.py) and
-    multi-host mode (tests/test_torch_mh_trainer.py) are ported."""
-    ds = _ds(5, 1)
-    with pytest.raises(ValueError, match="does not implement .*" + name):
-        CachedDlrmTrainer(_cfg(True, **kw), ds, ds, device="cpu")
 
 
 def test_plain_unpacked_wire_trains_and_serves():

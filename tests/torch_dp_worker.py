@@ -269,10 +269,19 @@ def inline_writeback(tr):
 def train_and_collect(tr, steps, evaluate=False, more_steps=0, save=None, to_numpy=np.asarray):
     """Drive a cached trainer of either package: ``steps`` steps, an optional
     save, ``more_steps`` further steps, an optional eval pass; returns what
-    the tests compare, as numpy arrays and plain values. The caller closes
-    the trainer."""
-    windows = []
+    the tests compare, as numpy arrays and plain values; with the hot tier
+    also each window's hot list and cold bucket as the trainer adopted them.
+    The caller closes the trainer."""
+    windows, hot = [], []
     tr._log_metrics = lambda kind, payload: windows.append((kind, dict(payload)))
+    if tr._hot:
+        apply_stats = tr._apply_window_stats
+
+        def recording(window):
+            apply_stats(window)
+            hot.append((to_numpy(tr._hot_slots_dev).copy(), tr._cold_bucket_window))
+
+        tr._apply_window_stats = recording
     tr.train(max_steps=steps, log_fn=lambda *_: None)
     if save:
         tr.save_checkpoint(save)
@@ -295,6 +304,9 @@ def train_and_collect(tr, steps, evaluate=False, more_steps=0, save=None, to_num
         step_keys=np.array(sorted(str(tuple(k)) for k in tr._step_cache)),
         cursor=np.array(tr._cursor),
     )
+    if hot:
+        out["hot_lists"] = np.stack([h for h, _ in hot])
+        out["cold_buckets"] = np.array([c for _, c in hot])
     out["cache"] = to_numpy(tr.cache)
     if tr.touched is not None:
         out["touched"] = to_numpy(tr.touched).astype(bool)
