@@ -26,6 +26,7 @@ process group and creates none.
 from __future__ import annotations
 
 import datetime
+import gc
 from typing import List, Optional
 
 import numpy as np
@@ -162,9 +163,21 @@ def make_dp_mesh(world_size: int = 1, rank: Optional[int] = None, *,
 
 
 def destroy_dp_mesh(group: DpGroup) -> None:
-    """Leave the process group that :func:`make_dp_mesh` joined."""
+    """Leave the process group that :func:`make_dp_mesh` joined, and stop
+    its backend's threads.
+
+    ``destroy_process_group`` unregisters the group, but a gloo group's
+    threads (``pt_gloo_runloop``, ``gloo_tcp_loop``) run for as long as its
+    Python object lives, and a closed trainer in a reference cycle keeps it
+    alive through ``group``. A process that exits with those threads running
+    can abort in the interpreter's teardown ("terminate called without an
+    active exception", SIGABRT) after its work is done. So ``group`` drops
+    its handles and the cycles are collected here: with no trainer of the
+    group still in use, the threads are joined before this returns."""
     if not group.single and dist.is_initialized():
         dist.destroy_process_group()
+    group.group = group.host_group = None
+    gc.collect()
 
 
 def local_replica_ids(group: DpGroup) -> List[int]:

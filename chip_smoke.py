@@ -52,7 +52,12 @@ hot tier (``hot_tier_rows`` 4096), a block of it against the CPU and one
 step with the hot tier against one without from the same state, after a
 small call whose hot list holds one row twice, held bit-equal to the CPU,
 and (o) run (c) on the sorted unpacked dedup wire, a block against the CPU
-and one step against the default layout from the same state. Each run
+and one step against the default layout from the same state; and (phase 15)
+the port's three harnesses at their headline defaults, in this process:
+bench_torch.py (training examples/s, the device step and scan block by CUDA
+events, serving, the steady-state regime with refills), the step breakdown
+and the serving A/B, each record printed after the card line and its
+contract checked. Each run
 resets every kernel's launch count just before it and reads them just after.
 One serving batch, one train step of each cached run, one coalesced block,
 one full-table step and one full-table AdaGrad step are checked against the
@@ -81,6 +86,9 @@ import time
 
 import numpy as np
 import torch
+
+import bench_torch
+from bench_torch import KERNELS, card_line, read_launches, reset_launches
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -167,14 +175,6 @@ SCORE_TOL = 5e-3
 ADD_TOL = 1e-5
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
 def clocks_line() -> str:
     """The card's SM and memory clocks and its power draw as nvidia-smi reads
     them now: beside the kernel times, they tell a slower card from a slower
@@ -256,25 +256,6 @@ def add_timer(obj, name: str) -> list:
 
     setattr(obj, name, timed)
     return spent
-
-
-KERNELS = ("gather_rows", "scatter_set_rows", "scatter_add_rows", "index_add_rows")
-
-
-def _wrappers() -> dict:
-    from cdlrm_tpu_torch.ops import lookup, scatter
-
-    return {name: getattr(lookup, name, None) or getattr(scatter, name) for name in KERNELS}
-
-
-def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    for fn in _wrappers().values():
-        fn.launches = 0
-
-
-def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def headline_config(ln_emb=None, **kw):
@@ -2325,6 +2306,63 @@ def hot_and_sorted(card: str, dev: torch.device, runs: dict) -> dict:
     return {"n": n, "o": o}
 
 
+# Phase 15: the port's harnesses at their headline defaults, in this process
+BENCH_POSITIVE = ("value", "device_step_ms", "block_step_ms_per_iter", "eval_examples_per_sec",
+                  "steady_state_examples_per_sec", "ms_per_iter", "h2d_bytes_per_step")
+BENCH_KEYS = BENCH_POSITIVE + (
+    "metric", "unit", "hit_rate", "caching_overhead_ms_per_iter", "block_coalesced",
+    "block_union_host_ms", "eval_hit_rate", "steady_state_ms_per_iter",
+    "steady_state_caching_overhead_ms_per_iter", "steady_lookahead", "steady_refills",
+    "timed_steps", "backend", "config", "device", "window_examples_per_sec", "launches")
+BREAKDOWN_COMPONENTS = ("gather_uniq", "expand_take", "pend_scatter", "cache_scatter",
+                        "flush_scatter", "dense_fwdbwd")
+
+
+def harnesses(card: str) -> dict:
+    """Phase 15: ``run({})`` of bench_torch.py (the headline, the device step
+    and block, serving and the steady-state regime), of
+    bench_step_breakdown_torch.py and of bench_serving_ab_torch.py, on the
+    card in this process. Prints each record after the card line, checks its
+    contract, and counts each run's kernel launches from 0."""
+    import bench_serving_ab_torch
+    import bench_step_breakdown_torch
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    recs = {}
+    for mod in (bench_torch, bench_step_breakdown_torch, bench_serving_ab_torch):
+        t0 = time.perf_counter()
+        reset_launches()
+        rec = mod.run({})
+        launches = read_launches()
+        torch.cuda.empty_cache()
+        print(f"{card} {json.dumps(rec)}")
+        print(f"[{card}] phase 15: {mod.__name__}.run({{}}) took {time.perf_counter() - t0:.1f} s")
+        assert rec["backend"] == "cuda" and rec["device"] == card, (rec["backend"], rec["device"])
+        assert rec["launches"] == launches, (rec["launches"], launches)
+        for name in KERNELS:
+            total[name] += launches[name]
+        recs[mod.__name__] = rec
+    b = recs["bench_torch"]
+    missing = [k for k in BENCH_KEYS if k not in b]
+    assert not missing and "vs_baseline" not in b, missing
+    assert b["metric"] == "cached_dlrm_train_examples_per_sec_per_chip", b["metric"]
+    assert all(b[k] > 0 for k in BENCH_POSITIVE), {k: b[k] for k in BENCH_POSITIVE}
+    assert b["steady_refills"] >= 3 and b["timed_steps"] == 40, b
+    assert min(b["window_examples_per_sec"][k] for k in ("min", "median", "max")) > 0, b
+    br = recs["bench_step_breakdown_torch"]
+    assert br["metric"] == "step_breakdown", br["metric"]
+    assert all(br["components"][c] > 0 for c in BREAKDOWN_COMPONENTS), br["components"]
+    assert br["block_step_ms_per_iter"] > 0 and br["block_coalesced"] is True, br
+    sv = recs["bench_serving_ab_torch"]
+    assert sv["metric"] == "serving_pipeline_ab", sv["metric"]
+    assert sv["serial_examples_per_sec"] > 0 and sv["pipelined_examples_per_sec"] > 0, sv
+    assert all(total[name] > 0 for name in KERNELS), total
+    print(f"[{card}] phase 15: the three harnesses' contracts hold; kernel launches {total}; "
+          f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total, "records": recs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2376,6 +2414,8 @@ def main() -> int:
     runs["multi_host"] = multi_host(card)
     torch.cuda.empty_cache()
     runs.update(hot_and_sorted(card, dev, runs))
+    torch.cuda.empty_cache()
+    runs["harnesses"] = harnesses(card)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu")]
     assert not loaded, f"the port imported {loaded}"
@@ -2389,8 +2429,8 @@ def main() -> int:
     # launches: the sum over the main-path runs (serving, training a to h,
     # full-table training with SGD, AdaGrad, QR and MD, the profiled run, the
     # two ranks' runs k and l and the multi-host run m as their processes
-    # counted them, the hot-tier run n and the sorted-wire run o), each
-    # counted from 0
+    # counted them, the hot-tier run n and the sorted-wire run o, and phase
+    # 15's three harnesses), each counted from 0
     launches = {name: served[name] + full["launches"][name] + full_ag["launches"][name]
                 + sum(run["launches"][name] for run in runs.values())
                 for name in KERNELS}

@@ -281,6 +281,33 @@ def test_failing_rank_ends_the_launch(tmp_path):
         W.run_ranks(2, cases, str(tmp_path), timeout=60)
 
 
+def test_a_failed_join_launches_the_ranks_again(tmp_path, monkeypatch):
+    """Joining the group can fail in gloo's connection of the ranks under
+    load ("Connection closed by peer" in connectFullMesh), before any case
+    has run on any rank: the launch starts again on a fresh rendezvous file.
+    A rank that fails after joining is never relaunched (the test above)."""
+    marker = tmp_path / "failed_once"
+    monkeypatch.setenv("DP_WORKER_FAIL_JOIN_ONCE", str(marker))
+    cases = [dict(name="agg", kind="aggregate", args=dict(ndev=2, op="sum"))]
+    load = W.run_ranks(2, cases, str(tmp_path), timeout=60)
+    assert marker.exists()
+    assert {"cache", "touched"} <= set(load("agg", 1))
+
+
+def test_destroy_dp_mesh_stops_the_group_threads(tmp_path):
+    """Leaving the group joins its gloo threads, even while a reference
+    cycle (a closed trainer's) holds the process group: a rank that exited
+    with them running could abort in the interpreter's teardown after its
+    results were written (SIGABRT, "terminate called without an active
+    exception"), which failed a whole launch. Each rank checks after
+    destroy_dp_mesh that no gloo thread is left, and raises if one is."""
+    cases = [dict(name="cycle", kind="cycle", args={})]
+    W.run_ranks(2, cases, str(tmp_path), timeout=60)
+    for r in range(2):
+        log = (tmp_path / f"log_w2_r{r}.txt").read_text()
+        assert f"rank {r}: 1 cases done" in log, log
+
+
 def test_world_size_one_needs_no_process_group():
     group = tmesh.make_dp_mesh(1)
     assert group.single and group.group is None and group.backend is None

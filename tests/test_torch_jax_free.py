@@ -4,11 +4,13 @@ finalizes as cdlrm_tpu's does.
 The port keeps its own copy of the host layer (config, data, cache, native
 ops, pipeline, utils). The guard runs the whole serving and training paths
 and the CLI in a fresh interpreter where importing jax or cdlrm_tpu fails,
-and a static walk over the port's sources and chip_smoke.py finds no such
-import, by statement or by string."""
+and a static walk over the port's sources, chip_smoke.py and the port's
+harnesses finds no such import, by statement or by string; bench_torch.py's
+CPU mode runs where jax and cdlrm_tpu cannot be imported."""
 
 import ast
 import dataclasses
+import json
 import os
 import pickle
 import subprocess
@@ -307,6 +309,12 @@ def _forbidden_imports(path):
     """(line, name) of every import of a FORBIDDEN package in one source:
     ``import x``, ``from x import``, and ``importlib.import_module("x")`` or
     ``__import__("x")`` with the name given as a string."""
+    return [(line, n) for line, n in _imports(path) if n.split(".")[0] in FORBIDDEN]
+
+
+def _imports(path):
+    """(line, name) of every import in one source, in the forms
+    :func:`_forbidden_imports` reads."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     found = []
@@ -323,7 +331,7 @@ def _forbidden_imports(path):
                 arg = node.args[0]
                 if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
                     names = [arg.value]
-        found += [(node.lineno, n) for n in names if n.split(".")[0] in FORBIDDEN]
+        found += [(node.lineno, n) for n in names]
     return found
 
 
@@ -346,6 +354,41 @@ def test_port_sources_import_neither_jax_nor_cdlrm_tpu():
 
 def test_chip_smoke_imports_neither_jax_nor_cdlrm_tpu():
     assert not _forbidden_imports(os.path.join(REPO, "chip_smoke.py"))
+
+
+HARNESSES = ("bench_torch.py", "bench_step_breakdown_torch.py", "bench_serving_ab_torch.py")
+
+
+@pytest.mark.parametrize("script", HARNESSES)
+def test_harnesses_import_neither_jax_nor_the_reference(script):
+    """The port's harnesses import neither jax nor cdlrm_tpu, nor the
+    reference's harnesses (bench.py and its siblings), only each other."""
+    path = os.path.join(REPO, script)
+    assert not _forbidden_imports(path)
+    benches = [n for _, n in _imports(path) if n.split(".")[0].startswith("bench")]
+    assert all(n.endswith("_torch") for n in benches), benches
+
+
+_BENCH = _BLOCK_JAX + """
+import os, runpy
+os.environ["BENCH_CPU"] = "1"
+try:
+    runpy.run_path("bench_torch.py", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+""" + _JAX_LOADED + "print('BENCHED')\n"
+
+
+def test_bench_torch_runs_without_jax():
+    """bench_torch.py's CPU mode end to end (headline, device step, scan
+    block, serving, steady state) with jax and cdlrm_tpu unimportable."""
+    res = _run(_BENCH)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert lines[-1] == "BENCHED"
+    rec = json.loads(lines[-2])
+    assert rec["metric"] == "cached_dlrm_train_examples_per_sec_per_chip"
+    assert rec["backend"] == "cpu" and rec["steady_refills"] >= 3
 
 
 def test_dp_worker_imports_neither_jax_nor_cdlrm_tpu():

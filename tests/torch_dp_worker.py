@@ -409,6 +409,33 @@ def case_fulltable(group, ln_emb, cfg, stream, steps, out_dir, test_stream=None,
         tr.close()
 
 
+def case_cycle(group, **_):
+    """A closed trainer's shape: an object in a reference cycle that holds
+    the group's process group, left for the collector after one
+    collective. destroy_dp_mesh must still stop the group's threads."""
+    import torch
+
+    holder = {"pg": group.group}
+    holder["self"] = holder
+    group.all_reduce_sum(torch.ones(4))
+    return {}
+
+
+def gloo_threads() -> list:
+    """The names of this process's native threads that belong to a gloo
+    process group (Linux names them; elsewhere the list is empty)."""
+    import glob
+
+    names = []
+    for path in glob.glob("/proc/self/task/*/comm"):
+        try:
+            with open(path) as f:
+                names.append(f.read().strip())
+        except OSError:  # the thread ended while the list was read
+            continue
+    return sorted(n for n in names if "gloo" in n)
+
+
 def case_fail(group, rank=1, **_):
     """A rank that raises: the launcher must see its exit code."""
     if group.rank == rank:
@@ -416,20 +443,18 @@ def case_fail(group, rank=1, **_):
     return {}
 
 
-def run_ranks(world, cases, out_dir, timeout=240.0):
-    """Launch ``world`` ranks of this script over ``cases`` and wait for
-    them. Returns ``load(name, rank)``, which reads a case's saved arrays.
-    A rank that exits with a non-zero code, or the time limit, ends the
-    others at once and raises with the ranks' output: no process stays
-    behind."""
+# a rank's exit code when joining the group failed: no case has run on any
+# rank (a case ends only when every rank has joined), so the launch may start again
+RENDEZVOUS_FAILED = 3
+
+
+def _launch(world, spec, rdzv, out_dir, timeout):
+    """Start ``world`` ranks and wait for them; returns (exit codes, the end
+    of each rank's output). A rank that exits with a non-zero code, or the
+    time limit, ends the others at once."""
     import subprocess
     import time
 
-    os.makedirs(out_dir, exist_ok=True)
-    spec = os.path.join(out_dir, f"spec_w{world}.json")
-    with open(spec, "w") as f:
-        json.dump(cases, f)
-    rdzv = os.path.join(out_dir, f"rdzv_w{world}")
     logs = [open(os.path.join(out_dir, f"log_w{world}_r{r}.txt"), "w+") for r in range(world)]
     procs = [
         subprocess.Popen(
@@ -456,10 +481,35 @@ def run_ranks(world, cases, out_dir, timeout=240.0):
             log.seek(0)
             texts.append(log.read()[-4000:])
             log.close()
+    return codes, texts
+
+
+def run_ranks(world, cases, out_dir, timeout=240.0, attempts=3):
+    """Launch ``world`` ranks of this script over ``cases`` and wait for
+    them. Returns ``load(name, rank)``, which reads a case's saved arrays.
+    A rank that exits with a non-zero code, or the time limit, ends the
+    others at once and raises with the ranks' output: no process stays
+    behind. Only a failure to join the group (gloo's connection of the ranks
+    under load, before any case ran) starts the launch again, on a fresh
+    rendezvous file, up to ``attempts`` launches in all."""
+    os.makedirs(out_dir, exist_ok=True)
+    spec = os.path.join(out_dir, f"spec_w{world}.json")
+    with open(spec, "w") as f:
+        json.dump(cases, f)
+    for attempt in range(attempts):
+        rdzv = os.path.join(out_dir, f"rdzv_w{world}" + (f".{attempt}" if attempt else ""))
+        codes, texts = _launch(world, spec, rdzv, out_dir, timeout)
+        joined_none = RENDEZVOUS_FAILED in codes and all(
+            c in (RENDEZVOUS_FAILED, -9) for c in codes)
+        if not joined_none:
+            break
+        print(f"run_ranks: the {world} ranks failed to join (codes {codes}); launch "
+              f"{attempt + 2} of at most {attempts}", file=sys.stderr)
     if any(codes):
         raise RuntimeError(
             f"ranks exited with {codes} (a negative code: killed after another "
-            "rank failed or at the time limit)\n" + "\n".join(
+            f"rank failed or at the time limit; {RENDEZVOUS_FAILED}: joining the group "
+            f"failed, in all of {attempt + 1} launches)\n" + "\n".join(
                 f"--- rank {r} ---\n{t}" for r, t in enumerate(texts))
         )
 
@@ -473,6 +523,7 @@ def run_ranks(world, cases, out_dir, timeout=240.0):
 KINDS = {
     "train_step": case_train_step, "refill": case_refill, "aggregate": case_aggregate,
     "trainer": case_trainer, "fulltable": case_fulltable, "fail": case_fail,
+    "cycle": case_cycle,
 }
 
 
@@ -486,8 +537,18 @@ def main():
     torch.set_num_threads(1)
     with open(spec_path) as f:
         cases = json.load(f)
-    group = make_dp_mesh(world, rank, init_method="file://" + rdzv, device="cpu",
-                         timeout_s=120)
+    once = os.environ.get("DP_WORKER_FAIL_JOIN_ONCE")
+    if once and rank == 1 and not os.path.exists(once):
+        # a test's stand-in for gloo failing to connect the ranks
+        open(once, "w").close()
+        os._exit(RENDEZVOUS_FAILED)
+    try:
+        group = make_dp_mesh(world, rank, init_method="file://" + rdzv, device="cpu",
+                             timeout_s=120)
+    except RuntimeError:  # gloo's rendezvous or connection: no case ran
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(RENDEZVOUS_FAILED)
     assert group.backend == "gloo" and group.rank == rank
     try:
         for case in cases:
@@ -495,6 +556,11 @@ def main():
             np.savez(os.path.join(out_dir, f"{case['name']}.r{rank}.npz"), **out)
     finally:
         destroy_dp_mesh(group)
+    # a group's threads still running at the interpreter's teardown can abort
+    # the process after its results are written (mesh.py destroy_dp_mesh)
+    left = gloo_threads()
+    if left:
+        raise RuntimeError(f"rank {rank}: gloo threads {left} outlived destroy_dp_mesh")
     print(f"rank {rank}: {len(cases)} cases done")
 
 
