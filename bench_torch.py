@@ -104,6 +104,44 @@ def device_for(cpu: bool, what: str, cpu_var: str):
     return torch.device("cuda", 0)
 
 
+def launch_ranks(argvs: list, log_dir: str, timeout_s: float, grace_s: float = 2.0) -> list:
+    """Start one Python process per argument list (one rank each), its
+    output to ``log_dir/rank<r>.log``, and wait for all of them. A rank that
+    exits with a non-zero code ends the others after ``grace_s`` (a peer that
+    failed on its closed connections writes its own error meanwhile); the
+    time limit ends them at once. Returns each rank's log; raises with the
+    logs when any rank did not exit 0. No process is left running."""
+    paths = [os.path.join(log_dir, f"rank{r}.log") for r in range(len(argvs))]
+    logs = [open(path, "w") for path in paths]
+    procs = []
+    try:
+        for argv, out in zip(argvs, logs):
+            procs.append(subprocess.Popen([sys.executable, *argv], stdout=out,
+                                          stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                deadline = min(deadline, time.monotonic() + grace_s)
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        codes = [p.wait() for p in procs]
+        for out in logs:
+            out.close()
+    texts = []
+    for path in paths:
+        with open(path) as f:
+            texts.append(f.read())
+    if any(codes):
+        raise RuntimeError(f"ranks exited with {codes}\n" + "\n".join(
+            f"--- rank {r} ---\n{t[-3000:]}" for r, t in enumerate(texts)))
+    return texts
+
+
 class DeviceClock:
     """Milliseconds of the work enqueued inside the ``with`` block: one pair
     of CUDA events around it and one synchronize at its end, on the card;
@@ -435,10 +473,11 @@ def run(env: dict) -> dict:
     )
 
 
-def main(run_fn=run) -> int:
+def main(run_fn=run, lines=None) -> int:
     """Print ``run_fn``'s line for the environment's knobs (this harness's
-    ``run`` or a sibling's); without a card and without the CPU request, the
-    message and exit code 1."""
+    ``run`` or a sibling's), or each of the lines ``lines`` takes from its
+    record; without a card and without the CPU request, the message and exit
+    code 1."""
     try:
         rec = run_fn(dict(os.environ))
     except RuntimeError as e:
@@ -446,7 +485,8 @@ def main(run_fn=run) -> int:
             raise
         print(e, file=sys.stderr)
         return 1
-    print(json.dumps(rec))
+    for line in lines(rec) if lines else [rec]:
+        print(json.dumps(line), flush=True)
     return 0
 
 

@@ -127,8 +127,9 @@ def _run(cfg: Config, device: torch.device, group=None) -> int:
 def _run_rank(rank: int, world_size: int, argv, device_type: str, init_method: str) -> None:
     """One rank of a data-parallel run: join the group, train on this
     rank's device (``cuda:rank``, or the CPU), leave the group. An
-    exception ends the process with a non-zero code, which ends the run."""
-    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+    exception is written to stderr before the rank leaves the group, and
+    ends the process with a non-zero code, which ends the run."""
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh, report_failure
 
     device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
     if device.type == "cuda":
@@ -136,6 +137,9 @@ def _run_rank(rank: int, world_size: int, argv, device_type: str, init_method: s
     group = make_dp_mesh(world_size, rank, init_method=init_method, device=device)
     try:
         _run(config_from_args(argv), device, group)
+    except BaseException:
+        report_failure(rank)
+        raise
     finally:
         destroy_dp_mesh(group)
 
@@ -144,8 +148,9 @@ def _run_multihost(cfg: Config, device_type: str) -> int:
     """One rank of a multi-host run (cdlrm_tpu/cli.py:73-83): check the host
     fields against the world size, join the group through the coordinator,
     set ``num_hosts`` and ``host_id`` to the group's (the bin loader's
-    ``--data-host-slice`` reads them), train, leave the group."""
-    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+    ``--data-host-slice`` reads them), train, leave the group. An exception
+    is written to stderr before the rank leaves the group."""
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh, report_failure
     from cdlrm_tpu_torch.parallel.multihost import check_hosts, initialize_distributed
 
     world = cfg.world_size
@@ -166,6 +171,9 @@ def _run_multihost(cfg: Config, device_type: str) -> int:
     group = make_dp_mesh(nproc, pid, device=device)
     try:
         return _run(cfg, device, group)
+    except BaseException:
+        report_failure(pid)
+        raise
     finally:
         destroy_dp_mesh(group)
 

@@ -27,6 +27,9 @@ from __future__ import annotations
 
 import datetime
 import gc
+import sys
+import time
+import traceback
 from typing import List, Optional
 
 import numpy as np
@@ -178,6 +181,18 @@ def destroy_dp_mesh(group: DpGroup) -> None:
         dist.destroy_process_group()
     group.group = group.host_group = None
     gc.collect()
+
+
+def report_failure(rank: int) -> None:
+    """Write the exception being handled to stderr with the time it was
+    caught (``rank R failed at T``, seconds since the epoch), flushed. A
+    failing rank does this before it leaves the group: once it has left, its
+    peers fail on the closed connections, and their errors, or a launcher
+    ending the run, can come before any later report of its own. The times
+    order the ranks' reports."""
+    traceback.print_exc()
+    print(f"rank {rank} failed at {time.time():.6f}", file=sys.stderr)
+    sys.stderr.flush()
 
 
 def local_replica_ids(group: DpGroup) -> List[int]:

@@ -57,7 +57,13 @@ the port's three harnesses at their headline defaults, in this process:
 bench_torch.py (training examples/s, the device step and scan block by CUDA
 events, serving, the steady-state regime with refills), the step breakdown
 and the serving A/B, each record printed after the card line and its
-contract checked. Each run
+contract checked; and (phase 16) the port's other four harnesses at their
+defaults: the block A/B of the row kernels on both streams (both arms held
+to each other and to their plain versions' chains), convergence under cache
+pressure (a full-table oracle and cached runs at 30%, 10% and 3% of a
+table, the last with real misses and writebacks), the collective bytes of
+two ranks sharing the card over gloo (equal to two CPU ranks'), and the
+multi-host scaling of two ranks sharing the card (a lower bound). Each run
 resets every kernel's launch count just before it and reads them just after.
 One serving batch, one train step of each cached run, one coalesced block,
 one full-table step and one full-table AdaGrad step are checked against the
@@ -1699,7 +1705,7 @@ def dp_rank_main(rank: int, rdzv: str, tmp: str) -> int:
     current, joins a gloo group asked for by name, runs (k) and (l), writes
     its launch counts to ``tmp/rank<r>.json`` and leaves with its threads
     joined. Any failure exits non-zero, and the parent reads the code."""
-    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh, report_failure
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1712,6 +1718,9 @@ def dp_rank_main(rank: int, rdzv: str, tmp: str) -> int:
     try:
         result = {"k": dp_run(card, dev, group, "delta", tmp),
                   "l": dp_run(card, dev, group, "strict", tmp)}
+    except BaseException:
+        report_failure(rank)  # before the peer fails on the closed connections
+        raise
     finally:
         destroy_dp_mesh(group)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -1731,7 +1740,7 @@ def two_ranks(card: str, rows: int, dev: torch.device) -> dict:
           "earlier change): this machine has one card, and both ranks use cuda:0")
     with tempfile.TemporaryDirectory(prefix="cdlrm_dp_") as tmp:
         rdzv = os.path.join(tmp, "rdzv")
-        run_rank_processes("phase 12", lambda r: ("--dp-rank", str(r), rdzv, tmp), DP_WORLD,
+        run_rank_processes(lambda r: ("--dp-rank", str(r), rdzv, tmp), DP_WORLD,
                            DP_TIMEOUT_S, tmp)
         results = []
         for r in range(DP_WORLD):
@@ -1995,7 +2004,7 @@ def mh_rank_main(rank: int, port: str, tmp: str) -> int:
     ``initialize_distributed`` in a gloo group asked for by name, runs
     :func:`mh_run`, writes its launch counts to ``tmp/mh_rank<r>.json`` and
     leaves. Any failure exits non-zero, and the parent reads the code."""
-    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh, report_failure
     from cdlrm_tpu_torch.parallel.multihost import initialize_distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2011,6 +2020,9 @@ def mh_rank_main(rank: int, port: str, tmp: str) -> int:
     assert group.backend == "gloo" and group.rank == rank
     try:
         result = mh_run(card, dev, group, coordinator, tmp)
+    except BaseException:
+        report_failure(rank)  # before the peer fails on the closed connections
+        raise
     finally:
         destroy_dp_mesh(group)
     with open(os.path.join(tmp, f"mh_rank{rank}.json"), "w") as f:
@@ -2018,33 +2030,17 @@ def mh_rank_main(rank: int, port: str, tmp: str) -> int:
     return 0
 
 
-def run_rank_processes(phase: str, argv_of, world: int, timeout_s: float, tmp: str) -> None:
+def run_rank_processes(argv_of, world: int, timeout_s: float, tmp: str) -> None:
     """Start ``world`` processes of this script (``argv_of(rank)``), wait
-    for all of them, print rank 0's log (and every rank's after a failure,
-    else the other ranks' lines that start with "  rank"), and fail on any
-    exit code but 0. A failed or late rank ends the others at once."""
-    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv_of(r)],
-                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
-             for r in range(world)]
-    deadline = time.monotonic() + timeout_s
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        codes = [p.wait() for p in procs]
-        for r, log in enumerate(logs):
-            log.seek(0)
-            text = log.read()
-            log.close()
-            sys.stdout.write(text if r == 0 or any(codes) else "".join(
-                line for line in text.splitlines(True) if line.startswith("  rank")))
-    assert codes == [0] * world, f"{phase}'s ranks exited with {codes}"
+    for all of them (``bench_torch.launch_ranks``: a failed rank ends the
+    others after a short grace, a late one at once, and any exit code but 0
+    raises with every rank's log), and print rank 0's log and the other
+    ranks' lines that start with "  rank"."""
+    texts = bench_torch.launch_ranks(
+        [[os.path.abspath(__file__), *argv_of(r)] for r in range(world)], tmp, timeout_s)
+    for r, text in enumerate(texts):
+        sys.stdout.write(text if r == 0 else "".join(
+            line for line in text.splitlines(True) if line.startswith("  rank")))
 
 
 def multi_host(card: str) -> dict:
@@ -2058,7 +2054,7 @@ def multi_host(card: str) -> dict:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
     with tempfile.TemporaryDirectory(prefix="cdlrm_mh_") as tmp:
-        run_rank_processes("phase 13", lambda r: ("--mh-rank", str(r), port, tmp), MH_WORLD,
+        run_rank_processes(lambda r: ("--mh-rank", str(r), port, tmp), MH_WORLD,
                            MH_TIMEOUT_S, tmp)
         results = []
         for r in range(MH_WORLD):
@@ -2363,6 +2359,90 @@ def harnesses(card: str) -> dict:
     return {"launches": total, "records": recs}
 
 
+def more_harnesses(card: str) -> dict:
+    """Phase 16: bench_block_ab_torch.py (both streams), bench_pressure_torch.py
+    (the oracle and the three capacity points), bench_collectives_torch.py (two
+    ranks sharing cuda:0 over gloo, whose byte counts must equal two CPU
+    ranks') and bench_scaling_torch.py (``--hosts 2`` on the card). Prints each
+    record after the card line, checks its contract, and counts each run's
+    kernel launches from 0: in this process for the first two, in the ranks'
+    processes (summed by the harness) for the last two."""
+    import bench_block_ab_torch
+    import bench_collectives_torch
+    import bench_pressure_torch
+    import bench_scaling_torch
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    recs = {}
+
+    def counted(name, fn, in_process):
+        t0 = time.perf_counter()
+        reset_launches()
+        rec = fn()
+        launches = read_launches()
+        torch.cuda.empty_cache()
+        if in_process:
+            assert rec["launches"] == launches, (name, rec["launches"], launches)
+        else:
+            assert launches == dict.fromkeys(KERNELS, 0), (name, launches)
+        for kernel in KERNELS:
+            total[kernel] += rec["launches"][kernel]
+        recs[name] = rec
+        print(f"[{card}] phase 16: {name} took {time.perf_counter() - t0:.1f} s; kernel launches "
+              f"{rec['launches']}")
+        return rec
+
+    ab = counted("block_ab", lambda: bench_block_ab_torch.run({}), True)
+    for line in ab["streams"]:
+        print(f"{card} {json.dumps(line)}")
+        assert line["backend"] == "cuda" and line["device"] == card, line
+        assert line["per_step_ms_A_dedup"] > 0 and line["per_step_ms_B_coalesced"] > 0, line
+        assert line["N"] == 26 * 4096, line
+        errs = line["check_max_err"]
+        assert {"A_vs_B", "A_vs_A_plain", "B_vs_B_plain"} <= set(errs), errs
+        assert max(errs.values()) <= bench_block_ab_torch.CHECK_TOL, errs
+    assert [ln["stream"] for ln in ab["streams"]] == list(bench_block_ab_torch.STREAMS)
+    # neither arm sets rows (the reference's neither): the row set is the
+    # pressure runs' (aux staging, refill insert)
+    assert all(ab["launches"][k] > 0 for k in ("gather_rows", "scatter_add_rows",
+                                               "index_add_rows")), ab["launches"]
+
+    pr = counted("pressure", lambda: bench_pressure_torch.run({}), True)
+    print(f"{card} {json.dumps(pr)}")
+    assert pr["metric"] == "pressure_auc_gap" and pr["backend"] == "cuda", pr
+    assert pr["steps"] == 240 and pr["device"] == card, pr
+    assert [c["capacity_frac"] for c in pr["cached"]] == [0.3, 0.1, 0.03], pr["cached"]
+    aucs = [pr["oracle"]["auc"]] + [c["auc"] for c in pr["cached"]]
+    assert all(np.isfinite(aucs)), aucs
+    hardest = pr["cached"][-1]
+    assert pr["pressure_real"] is True, hardest
+    assert hardest["hit_rate"] < 0.99 and hardest["rows_written"] > 0, hardest
+    assert all(pr["launches"][k] > 0 for k in KERNELS), pr["launches"]
+
+    co = counted("collectives", lambda: bench_collectives_torch.run(
+        {}, backend="cuda", worlds=(2,)), False)
+    co_cpu = bench_collectives_torch.run({}, backend="cpu", worlds=(2,))
+    for line in co["lines"]:
+        print(f"{card} {json.dumps(line)}")
+    print(f"{card} {json.dumps({'ratios': co['ratios'], 'launches': co['launches']})}")
+    assert co["lines"] == co_cpu["lines"], (co["lines"], co_cpu["lines"])
+    assert co["device"] == card and co["ratios"]["refill_strict_over_delta"] == 210.0, co
+
+    sc = counted("scaling", lambda: bench_scaling_torch.run({}, hosts=2, backend="cuda"), False)
+    for line in sc["lines"]:
+        print(f"{card} {json.dumps(line)}")
+    single, multi, eff = sc["lines"]
+    assert single["examples_per_sec"] > 0 and multi["examples_per_sec"] > 0, sc["lines"]
+    assert eff["value"] > 0 and "lower bound" in eff["note"] and eff["device"] == card, eff
+    assert sc["launches"]["gather_rows"] > 0 and sc["launches"]["scatter_set_rows"] > 0, sc
+
+    assert all(total[k] > 0 for k in KERNELS), total
+    print(f"[{card}] phase 16: the four harnesses' contracts hold; kernel launches {total}; "
+          f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total, "records": recs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2416,6 +2496,8 @@ def main() -> int:
     runs.update(hot_and_sorted(card, dev, runs))
     torch.cuda.empty_cache()
     runs["harnesses"] = harnesses(card)
+    torch.cuda.empty_cache()
+    runs["more_harnesses"] = more_harnesses(card)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "cdlrm_tpu")]
     assert not loaded, f"the port imported {loaded}"
@@ -2429,8 +2511,8 @@ def main() -> int:
     # launches: the sum over the main-path runs (serving, training a to h,
     # full-table training with SGD, AdaGrad, QR and MD, the profiled run, the
     # two ranks' runs k and l and the multi-host run m as their processes
-    # counted them, the hot-tier run n and the sorted-wire run o, and phase
-    # 15's three harnesses), each counted from 0
+    # counted them, the hot-tier run n and the sorted-wire run o, phase 15's
+    # three harnesses and phase 16's four), each counted from 0
     launches = {name: served[name] + full["launches"][name] + full_ag["launches"][name]
                 + sum(run["launches"][name] for run in runs.values())
                 for name in KERNELS}

@@ -281,6 +281,36 @@ def test_failing_rank_ends_the_launch(tmp_path):
         W.run_ranks(2, cases, str(tmp_path), timeout=60)
 
 
+def test_a_failing_rank_reports_before_it_leaves_the_group(tmp_path):
+    """The failing rank writes its own error before it leaves the group, and
+    its error leads the launcher's report. Here it stays a while after
+    leaving (a slow teardown): rank 0 fails on the closed connections in the
+    meantime and exits first, and the launcher ends rank 1 after the grace.
+    A rank that reported only after leaving would have lost its message."""
+    cases = [dict(name="bad", kind="fail", args=dict(linger_s=10.0)),
+             dict(name="never", kind="aggregate", args=dict(ndev=2, op="sum"))]
+    with pytest.raises(RuntimeError) as err:
+        W.run_ranks(2, cases, str(tmp_path), timeout=60)
+    text = str(err.value)
+    ranks = text.split("\n--- rank ")[1:]
+    assert ranks[0].startswith("1, exit "), text
+    assert "fails on purpose" in ranks[0], text
+    assert W.failed_at(ranks[0]) is not None, text
+
+
+def test_report_order_puts_the_first_failure_first():
+    """Ranks by the time each caught its error, then by their own non-zero
+    code, then those the launcher ended."""
+    def log(at):
+        return f"Traceback ...\nrank 0 failed at {at:.6f}\n"
+
+    assert W.report_order([1, 1], [log(20.0), log(10.5)]) == [1, 0]
+    assert W.report_order([-9, 1, -9], ["", log(3.0), ""]) == [1, 0, 2]
+    assert W.report_order([-9, 1, 0], ["", "", ""]) == [1, 0, 2]
+    assert W.failed_at("rank 12 failed at 1760000000.250000") == 1760000000.25
+    assert W.failed_at("no report") is None
+
+
 def test_a_failed_join_launches_the_ranks_again(tmp_path, monkeypatch):
     """Joining the group can fail in gloo's connection of the ranks under
     load ("Connection closed by peer" in connectFullMesh), before any case

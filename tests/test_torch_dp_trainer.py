@@ -20,6 +20,7 @@ fallback to strict), at the world sizes those tests use.
 """
 
 import os
+import socket
 import re
 import subprocess
 import sys
@@ -527,3 +528,32 @@ def test_cli_fails_when_a_rank_fails(tmp_path):
     res = _cli("--load-model", str(tmp_path / "no_such_checkpoint"))
     assert res.returncode != 0
     assert "no_such_checkpoint" in res.stderr
+
+
+def test_cli_rank_reports_its_own_error_under_a_launcher(tmp_path):
+    """Two ranks started as a launcher starts them (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``), of which only rank 1
+    raises, after joining the group: its stderr shows its own error, written
+    before it left the group, and rank 0, which waits for it in a
+    collective, fails too."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", WORLD_SIZE="2",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    extra = [(), ("--load-model", str(tmp_path / "no_such_checkpoint"))]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cdlrm_tpu_torch.cli", *_CLI, *extra[r]], cwd=REPO,
+        env=dict(env, RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    err1 = outs[1][1]
+    assert procs[1].returncode != 0 and procs[0].returncode != 0, outs
+    report = err1.index("rank 1 failed at ")
+    assert "no_such_checkpoint" in err1[:report], err1
+    assert "Connection closed" not in err1[:report], err1

@@ -356,7 +356,9 @@ def test_chip_smoke_imports_neither_jax_nor_cdlrm_tpu():
     assert not _forbidden_imports(os.path.join(REPO, "chip_smoke.py"))
 
 
-HARNESSES = ("bench_torch.py", "bench_step_breakdown_torch.py", "bench_serving_ab_torch.py")
+HARNESSES = ("bench_torch.py", "bench_step_breakdown_torch.py", "bench_serving_ab_torch.py",
+             "bench_block_ab_torch.py", "bench_pressure_torch.py", "bench_collectives_torch.py",
+             "bench_scaling_torch.py")
 
 
 @pytest.mark.parametrize("script", HARNESSES)
@@ -389,6 +391,29 @@ def test_bench_torch_runs_without_jax():
     rec = json.loads(lines[-2])
     assert rec["metric"] == "cached_dlrm_train_examples_per_sec_per_chip"
     assert rec["backend"] == "cpu" and rec["steady_refills"] >= 3
+
+
+_BLOCK_AB = _BLOCK_JAX + """
+import os, runpy
+os.environ.update(BLOCKAB_CPU="1", BLOCKAB_TABLES="2", BLOCKAB_IDS="500", BLOCKAB_BATCH="32",
+                  BLOCKAB_CACHE_ROWS="2048")
+try:
+    runpy.run_path("bench_block_ab_torch.py", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+""" + _JAX_LOADED + "print('BLOCKAB')\n"
+
+
+def test_bench_block_ab_torch_runs_without_jax():
+    """bench_block_ab_torch.py's CPU mode (both streams, both arms, the
+    float64 check) with jax and cdlrm_tpu unimportable."""
+    res = _run(_BLOCK_AB)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert lines[-1] == "BLOCKAB"
+    recs = [json.loads(ln) for ln in lines[-3:-1]]
+    assert [r["stream"] for r in recs] == ["loguniform", "zipf12"]
+    assert all(r["backend"] == "cpu" and r["B_over_A"] > 0 for r in recs)
 
 
 def test_dp_worker_imports_neither_jax_nor_cdlrm_tpu():

@@ -17,8 +17,10 @@ importing this module, which imports neither jax nor cdlrm_tpu.
 
 import json
 import os
+import re
 import sys
 import threading
+import time
 import traceback
 
 import numpy as np
@@ -436,24 +438,53 @@ def gloo_threads() -> list:
     return sorted(n for n in names if "gloo" in n)
 
 
-def case_fail(group, rank=1, **_):
-    """A rank that raises: the launcher must see its exit code."""
+def case_fail(group, rank=1, linger_s=0.0, **_):
+    """A rank that raises: the launcher must see its exit code. With
+    ``linger_s`` the failing rank stays that long after it has left the
+    group (a slow teardown): its peers fail on the closed connections in
+    the meantime, and the launcher ends it."""
     if group.rank == rank:
-        raise RuntimeError("this rank fails on purpose")
+        err = RuntimeError("this rank fails on purpose")
+        err.linger_s = linger_s
+        raise err
     return {}
 
 
 # a rank's exit code when joining the group failed: no case has run on any
 # rank (a case ends only when every rank has joined), so the launch may start again
 RENDEZVOUS_FAILED = 3
+# how long the other ranks may go on after one exits with a non-zero code: a
+# peer that failed on the closed connections writes its error in this time,
+# a peer that hangs in a collective is ended after it
+GRACE_S = 2.0
+FAILED_AT = re.compile(r"^rank \d+ failed at (\d+\.\d+)$", re.M)
+
+
+def failed_at(text):
+    """When a rank's output says it caught its error (parallel/mesh.py
+    ``report_failure``), or None."""
+    m = FAILED_AT.search(text)
+    return float(m.group(1)) if m else None
+
+
+def report_order(codes, texts):
+    """The ranks in the order a failure report lists them: first by the
+    time each caught its error (the rank whose error came first leads: the
+    others' errors are most often its consequence), then those that exited
+    with a code of their own, then those ended by the launcher."""
+    def key(r):
+        at = failed_at(texts[r])
+        return (at is None, at or 0.0, codes[r] in (0, -9), r)
+
+    return sorted(range(len(codes)), key=key)
 
 
 def _launch(world, spec, rdzv, out_dir, timeout):
     """Start ``world`` ranks and wait for them; returns (exit codes, the end
-    of each rank's output). A rank that exits with a non-zero code, or the
-    time limit, ends the others at once."""
+    of each rank's output). A rank that exits with a non-zero code ends the
+    others after :data:`GRACE_S` (at once if they have all exited); the
+    time limit ends them at once."""
     import subprocess
-    import time
 
     logs = [open(os.path.join(out_dir, f"log_w{world}_r{r}.txt"), "w+") for r in range(world)]
     procs = [
@@ -467,8 +498,10 @@ def _launch(world, spec, rdzv, out_dir, timeout):
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
-            if failed or time.monotonic() > deadline:
+            now = time.monotonic()
+            if any(p.poll() not in (None, 0) for p in procs):
+                deadline = min(deadline, now + GRACE_S)
+            if now > deadline:
                 break
             time.sleep(0.05)
     finally:
@@ -509,8 +542,10 @@ def run_ranks(world, cases, out_dir, timeout=240.0, attempts=3):
         raise RuntimeError(
             f"ranks exited with {codes} (a negative code: killed after another "
             f"rank failed or at the time limit; {RENDEZVOUS_FAILED}: joining the group "
-            f"failed, in all of {attempt + 1} launches)\n" + "\n".join(
-                f"--- rank {r} ---\n{t}" for r, t in enumerate(texts))
+            f"failed, in all of {attempt + 1} launches); the rank that failed first "
+            "comes first\n" + "\n".join(
+                f"--- rank {r}, exit {codes[r]} ---\n{texts[r]}"
+                for r in report_order(codes, texts))
         )
 
     def load(name, rank):
@@ -532,7 +567,7 @@ def main():
     rdzv, spec_path, out_dir = sys.argv[3:6]
     import torch
 
-    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh
+    from cdlrm_tpu_torch.parallel.mesh import destroy_dp_mesh, make_dp_mesh, report_failure
 
     torch.set_num_threads(1)
     with open(spec_path) as f:
@@ -550,12 +585,19 @@ def main():
         sys.stderr.flush()
         os._exit(RENDEZVOUS_FAILED)
     assert group.backend == "gloo" and group.rank == rank
+    linger_s = 0.0
     try:
         for case in cases:
             out = KINDS[case["kind"]](group, out_dir=out_dir, **case.get("args", {}))
             np.savez(os.path.join(out_dir, f"{case['name']}.r{rank}.npz"), **out)
+    except BaseException as e:
+        report_failure(rank)  # before the peers can hear of it
+        e.reported = True
+        linger_s = getattr(e, "linger_s", 0.0)
+        raise
     finally:
         destroy_dp_mesh(group)
+        time.sleep(linger_s)
     # a group's threads still running at the interpreter's teardown can abort
     # the process after its results are written (mesh.py destroy_dp_mesh)
     left = gloo_threads()
@@ -567,8 +609,10 @@ def main():
 if __name__ == "__main__":
     try:
         main()
-    except BaseException:
-        traceback.print_exc()
+    except BaseException as e:
+        if not getattr(e, "reported", False):
+            traceback.print_exc()
+            sys.stderr.flush()
         # leave at once: another rank may be waiting in a collective, and a
         # normal exit would wait for this process's threads
         os._exit(1)
