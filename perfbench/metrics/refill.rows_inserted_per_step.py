@@ -1,0 +1,18 @@
+"""refill.rows_inserted_per_step: cache rows that the window's refills
+insert, over the window's steps (each refill plan's insert count, as the
+program's planner gives it to ``_apply_refill``). The rows the refill
+stages and scatters, and the prefetcher gathers, a step. Cached trainer
+only."""
+
+NAME = "refill.rows_inserted_per_step"
+LAYER = "refill"
+UNIT = "rows"
+MOVES = "train_examples_per_s"
+SOURCE = "program_counter"
+CELLS = ("criteo1tb.flat",)
+
+
+def read(rec):
+    if rec.kind != "cached" or rec.entry != "train" or rec.window_steps <= 0:
+        return None
+    return sum(ins for ins, _ in rec.refills) / rec.window_steps
