@@ -27,7 +27,7 @@ The line holds:
   wire, 40 steps in print windows of 10, so that refills fall inside the
   timed region: examples / (step + amortised refill);
 - ``launches``: each hand-written kernel's launches over the whole run, from
-  the wrappers' ``.launches`` counters.
+  the program's ``launches.<kernel>`` counters (utils/profiling.py).
 
 Run from the repository root:
 
@@ -76,19 +76,25 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _wrappers() -> dict:
-    from cdlrm_tpu_torch.ops import lookup, scatter
+# the launch counters' totals at the last reset_launches()
+_LAUNCHES_AT_RESET: dict = {}
 
-    return {name: getattr(lookup, name, None) or getattr(scatter, name) for name in KERNELS}
+
+def _launch_totals() -> dict:
+    from cdlrm_tpu_torch.utils import profiling
+
+    counts = profiling.counters()
+    return {name: counts.get(f"launches.{name}", 0) for name in KERNELS}
 
 
 def reset_launches() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    """Count the kernels' launches from here on."""
+    _LAUNCHES_AT_RESET.update(_launch_totals())
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each hand-written kernel's launches since the last reset."""
+    return {name: n - _LAUNCHES_AT_RESET.get(name, 0) for name, n in _launch_totals().items()}
 
 
 def device_for(cpu: bool, what: str, cpu_var: str):

@@ -33,7 +33,7 @@ import numpy as np
 
 from cdlrm_tpu_torch.cache.master import MasterTables
 from cdlrm_tpu_torch.ops import native
-from cdlrm_tpu_torch.utils import affinity
+from cdlrm_tpu_torch.utils import affinity, profiling
 
 _SENTINEL = None
 
@@ -155,22 +155,23 @@ class EvictionManager(threading.Thread):
             self._apply(item)
 
     def _apply(self, item) -> None:
-        accs = None
-        if len(item) == 4:
-            tables, idxs, rows, accs = item
-        else:
-            tables, idxs, rows = item
-        if callable(rows):
-            rows = rows()
-        if callable(accs):
-            accs = accs()
-        for t in np.unique(tables):
-            sel = tables == t
-            self.rows_written += self.master.writeback(
-                int(t), idxs[sel], rows[sel], self.average
-            )
-            if accs is not None and self.acc_store is not None:
-                self.acc_store.writeback(int(t), idxs[sel], accs[sel])
+        # (tables, idxs, rows[, accs[, the index of the window that evicted]])
+        tables, idxs, rows, *rest = item
+        accs = rest[0] if rest else None
+        window = rest[1] if len(rest) > 1 else None
+        with profiling.span("evict.writeback", window=window):
+            with profiling.span("evict.d2h_wait"):
+                if callable(rows):
+                    rows = rows()
+                if callable(accs):
+                    accs = accs()
+            for t in np.unique(tables):
+                sel = tables == t
+                self.rows_written += self.master.writeback(
+                    int(t), idxs[sel], rows[sel], self.average
+                )
+                if accs is not None and self.acc_store is not None:
+                    self.acc_store.writeback(int(t), idxs[sel], accs[sel])
 
     def _drain_on_caller(self) -> None:
         try:
@@ -299,64 +300,69 @@ class LookaheadPrefetcher(threading.Thread):
 
     def _process_window(self, window: List, pool, epoch: int = 0,
                         start_j: int = 0) -> WindowData:
-        # window entries are ls_i [T, B] or (ls_i [T, B, P], mask)
-        num_tables = (
-            window[0][0].shape[0] if isinstance(window[0], tuple) else window[0].shape[0]
-        )
+        with profiling.span("prefetch.window", window=start_j // self.lookahead):
+            # window entries are ls_i [T, B] or (ls_i [T, B, P], mask)
+            num_tables = (
+                window[0][0].shape[0] if isinstance(window[0], tuple) else window[0].shape[0]
+            )
 
-        if self.backend == "process":
-            futs = [
-                pool.submit(_process_worker_gather, t, self._table_parts(window, t))
-                for t in range(num_tables)
-            ]
-            results = [f.result() for f in futs]
-        else:
-
-            def one_table(t: int):
-                idx = np.concatenate(self._table_parts(window, t))
-                # direct-table fast path only for full in-RAM masters (sharded
-                # masters hold owned slices indexed by LOCAL offsets)
-                tab = (
-                    self.master.tables
-                    if isinstance(self.master, MasterTables)
-                    else None
-                )
-                if native.available():
-                    n_rows = int(self.master.ln_emb[t])
-                    if tab is not None and tab[t].flags["C_CONTIGUOUS"]:
-                        # fused sorted-unique + row gather in one native call
-                        return native.unique_gather_f32(idx, tab[t], n_rows)
-                    uniq = native.unique_i64(idx, n_rows)
+            with profiling.span("prefetch.gather"):
+                if self.backend == "process":
+                    futs = [
+                        pool.submit(_process_worker_gather, t, self._table_parts(window, t))
+                        for t in range(num_tables)
+                    ]
+                    results = [f.result() for f in futs]
                 else:
-                    uniq = np.unique(idx)  # sorted, like torch.unique
-                return uniq, self.master.gather(t, uniq)
 
-            results = list(pool.map(one_table, range(num_tables)))
-        uniques = [r[0] for r in results]
+                    def one_table(t: int):
+                        idx = np.concatenate(self._table_parts(window, t))
+                        # direct-table fast path only for full in-RAM masters
+                        # (sharded masters hold owned slices indexed by LOCAL
+                        # offsets)
+                        tab = (
+                            self.master.tables
+                            if isinstance(self.master, MasterTables)
+                            else None
+                        )
+                        if native.available():
+                            n_rows = int(self.master.ln_emb[t])
+                            if tab is not None and tab[t].flags["C_CONTIGUOUS"]:
+                                # fused sorted-unique + row gather in one native call
+                                return native.unique_gather_f32(idx, tab[t], n_rows)
+                            uniq = native.unique_i64(idx, n_rows)
+                        else:
+                            uniq = np.unique(idx)  # sorted, like torch.unique
+                        return uniq, self.master.gather(t, uniq)
 
-        plan_spec = None
-        if self.shadow is not None:
-            if self._windows_produced == 0 and self.skip_first_plan:
-                pass  # plan already in the shadow's (checkpointed) state
-            else:
-                plan_spec = self.shadow.plan_insert_spec(uniques)
-        hot_slots = None
-        stats = None
-        if self.stats_spec is not None and self.shadow is not None:
-            if self.stats_spec[3] > 0:
-                hot_slots = self._select_hot(window, self.stats_spec[3])
-            stats = self._window_stats(window, pool, hot_slots)
-        self._windows_produced += 1
-        return WindowData(
-            uniques=uniques,
-            rows=[r[1] for r in results],
-            num_batches=len(window),
-            plan_spec=plan_spec,
-            stats=stats,
-            start_epoch=epoch,
-            start_j=start_j,
-            hot_slots=hot_slots,
-        )
+                    results = list(pool.map(one_table, range(num_tables)))
+            uniques = [r[0] for r in results]
+
+            plan_spec = None
+            if self.shadow is not None:
+                if self._windows_produced == 0 and self.skip_first_plan:
+                    pass  # plan already in the shadow's (checkpointed) state
+                else:
+                    with profiling.span("prefetch.plan"):
+                        plan_spec = self.shadow.plan_insert_spec(uniques)
+            hot_slots = None
+            stats = None
+            if self.stats_spec is not None and self.shadow is not None:
+                if self.stats_spec[3] > 0:
+                    hot_slots = self._select_hot(window, self.stats_spec[3])
+                with profiling.span("prefetch.stats"):
+                    stats = self._window_stats(window, pool, hot_slots)
+            self._windows_produced += 1
+            return WindowData(
+                uniques=uniques,
+                rows=[r[1] for r in results],
+                num_batches=len(window),
+                plan_spec=plan_spec,
+                stats=stats,
+                start_epoch=epoch,
+                start_j=start_j,
+                hot_slots=hot_slots,
+            )
 
     def _select_hot(self, window: List, h: int) -> np.ndarray:
         """Pick the window's hot set: up to ``h - 1`` POST-plan resident

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from cdlrm_tpu_torch.ops import _build
+from cdlrm_tpu_torch.utils import profiling
 
 
 def gather_rows_ref(cache: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -54,7 +55,7 @@ def _gather_forward(cache: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(cache.device).cuda_stream,
     )
     _build.check(lib, err, "gather_rows")
-    gather_rows.launches += 1
+    profiling.count("launches.gather_rows", 1)
     return out
 
 
@@ -82,7 +83,7 @@ def index_add_rows(
         alpha, torch.cuda.current_stream(out.device).cuda_stream,
     )
     _build.check(lib, err, "index_add_rows")
-    index_add_rows.launches += 1
+    profiling.count("launches.index_add_rows", 1)
     return out
 
 
@@ -105,8 +106,3 @@ def gather_rows(cache: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     respect to ``cache``."""
     return _GatherRows.apply(cache, slots)
 
-
-# kernel launches since the last reset (a process-wide count, as the kernel
-# is): a run can show that its main path went through the kernel
-gather_rows.launches = 0
-index_add_rows.launches = 0

@@ -26,6 +26,7 @@ from typing import Union
 import torch
 
 from cdlrm_tpu_torch.ops import _build
+from cdlrm_tpu_torch.utils import profiling
 
 
 def scatter_set_rows_ref(
@@ -87,7 +88,7 @@ def scatter_set_rows(
     if cache.device.type == "cpu":
         return scatter_set_rows_ref(cache, slots, rows, nvalid)
     _launch("scatter_set_rows", cache, slots, rows, nvalid)
-    scatter_set_rows.launches += 1
+    profiling.count("launches.scatter_set_rows", 1)
     return cache
 
 
@@ -101,10 +102,6 @@ def scatter_add_rows(
     if cache.device.type == "cpu":
         return scatter_add_rows_ref(cache, slots, delta, nvalid)
     _launch("scatter_add_rows", cache, slots, delta, nvalid)
-    scatter_add_rows.launches += 1
+    profiling.count("launches.scatter_add_rows", 1)
     return cache
 
-
-# kernel launches since the last reset (see gather_rows.launches)
-scatter_set_rows.launches = 0
-scatter_add_rows.launches = 0

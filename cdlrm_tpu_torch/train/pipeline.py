@@ -19,6 +19,8 @@ import queue
 import threading
 from typing import Iterator, Optional
 
+from cdlrm_tpu_torch.utils import profiling
+
 _SENTINEL = None
 
 # queue marker: the next batches start a new lookahead window — the consumer
@@ -139,7 +141,8 @@ class AssemblyPipeline(threading.Thread):
                     # before this thread probes the new window's batches),
                     # and the consumer picks the matching compiled step per
                     # block from the flag
-                    inputs, stats, dedup, binfo = tr._assemble(batch, b_loc)
+                    with profiling.span("pipeline.assemble", step=j):
+                        inputs, stats, dedup, binfo = tr._assemble(batch, b_loc)
                     if not self._put(
                         ((epoch, j), batch, inputs, stats, dedup, binfo)
                     ):

@@ -85,6 +85,7 @@ from cdlrm_tpu_torch.config import Config
 from cdlrm_tpu_torch.data.synthetic import Batch
 from cdlrm_tpu_torch.ops import native
 from cdlrm_tpu_torch.utils.metrics import StreamingAUC, accuracy_count
+from cdlrm_tpu_torch.utils import profiling
 from cdlrm_tpu_torch.utils.padding import pad_to_bucket, pow2_bucket
 from cdlrm_tpu_torch.models.dlrm import (
     param_leaves, init_dlrm, map_params, params_from_jax, params_to_jax,
@@ -240,11 +241,13 @@ class _WindowStager(threading.Thread):
                 tr = self.trainer
                 staged = None
                 if window.plan_spec is not None:
-                    plan = build_insert_plan(window.plan_spec, window.rows, tr.geo.dim)
-                    # stage_acc=False: the resume accumulators are gathered
-                    # at the boundary, behind the eviction fence
-                    # (_complete_staged_acc)
-                    staged = (plan, tr._refill_device_inputs(plan, stage_acc=False))
+                    with profiling.span("stage.window", window=window.start_j // tr.cfg.lookahead):
+                        plan = build_insert_plan(window.plan_spec, window.rows, tr.geo.dim)
+                        # stage_acc=False: the resume accumulators are
+                        # gathered at the boundary, behind the eviction
+                        # fence (_complete_staged_acc)
+                        with profiling.span("stage.h2d"):
+                            staged = (plan, tr._refill_device_inputs(plan, stage_acc=False))
                 if not self._put((window, staged)):
                     return
         except BaseException as e:
@@ -668,8 +671,13 @@ class CachedDlrmTrainer:
         AssemblyPipeline thread calls it before it stages its first batch)."""
         use_device(self.device)
 
-    def _to_device(self, a) -> torch.Tensor:
+    def _to_device(self, a, counter: Optional[str] = None) -> torch.Tensor:
+        """``a`` (a numpy array or a tensor) on the device; the bytes of a
+        host array add to the tracer's ``counter`` where one is named
+        (``h2d_bytes.batch``, ``.refill``, ``.eval``)."""
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        if counter is not None and t.device.type == "cpu":
+            profiling.count(counter, t.nbytes)
         return t.to(self.device)
 
     def _row_wire(self, rows: np.ndarray):
@@ -727,11 +735,14 @@ class CachedDlrmTrainer:
         which runs beside the previous boundary and could fence before that
         boundary's evictions are even queued) leaves the fourth operand to
         :meth:`_complete_staged_acc` at the boundary."""
-        ops = (
-            self._to_device(pad_to_bucket(plan.insert_slots, self.geo.trash_row)),
-            self._to_device(self._row_wire(pad_to_bucket(plan.insert_rows, 0.0))),
-            self._to_device(pad_to_bucket(plan.evict_slots, 0)),
-        )
+        slots = pad_to_bucket(plan.insert_slots, self.geo.trash_row)
+        rows = self._row_wire(pad_to_bucket(plan.insert_rows, 0.0))
+        evict = pad_to_bucket(plan.evict_slots, 0)
+        n_ins, n_ev = plan.insert_slots.shape[0], plan.evict_slots.shape[0]
+        pad = ((slots.nbytes + rows.nbytes) // slots.shape[0] * (slots.shape[0] - n_ins)
+               + evict.nbytes // evict.shape[0] * (evict.shape[0] - n_ev))
+        profiling.count("h2d_pad_bytes.refill", pad)
+        ops = tuple(self._to_device(a, "h2d_bytes.refill") for a in (slots, rows, evict))
         if self._acc_master is not None and stage_acc:
             ops = self._complete_staged_acc(plan, ops)
         return ops
@@ -751,7 +762,9 @@ class CachedDlrmTrainer:
         else:
             self.eviction_manager.flush()
             acc = self._acc_master.gather(plan.insert_tables, plan.insert_ids)
-        return tuple(d_inputs) + (self._to_device(pad_to_bucket(acc, 0.0)),)
+        acc_wire = pad_to_bucket(acc, 0.0)
+        profiling.count("h2d_pad_bytes.refill", acc_wire.nbytes - acc.nbytes)
+        return tuple(d_inputs) + (self._to_device(acc_wire, "h2d_bytes.refill"),)
 
     def _exchange_window(self, window_uniques, owned_rows):
         """The multi-host window-row exchange (cdlrm_tpu trainer.py:800-825):
@@ -864,38 +877,41 @@ class CachedDlrmTrainer:
         window's owned rows are exchanged first (or were, by the prestage:
         ``rows_exchanged``), and the full rows serve the window's train
         misses."""
-        t0 = time.perf_counter()
-        rows = window.rows
-        if self.multihost:
-            rows = (rows_exchanged if rows_exchanged is not None
-                    else self._exchange_window(window.uniques, rows))
-            self._window_store = WindowRowStore(window.uniques, rows)
-        if staged is not None:
-            # prestaged by the _WindowStager: plan joined, operands on the
-            # device; the occupancy replay and, with adagrad_master_state,
-            # the fenced resume-accumulator gather are left
-            plan, d_inputs = staged
-            d_inputs = self._complete_staged_acc(plan, d_inputs)
-            self.controller.apply_plan_spec(window.plan_spec)
-        else:
-            if window.plan_spec is not None:
-                plan = build_insert_plan(window.plan_spec, rows, self.geo.dim)
+        win = window.start_j // self.cfg.lookahead
+        with profiling.span("train.refill", step=self.global_step, window=win):
+            t0 = time.perf_counter()
+            rows = window.rows
+            if self.multihost:
+                rows = (rows_exchanged if rows_exchanged is not None
+                        else self._exchange_window(window.uniques, rows))
+                self._window_store = WindowRowStore(window.uniques, rows)
+            if staged is not None:
+                # prestaged by the _WindowStager: plan joined, operands on the
+                # device; the occupancy replay and, with adagrad_master_state,
+                # the fenced resume-accumulator gather are left
+                plan, d_inputs = staged
+                d_inputs = self._complete_staged_acc(plan, d_inputs)
                 self.controller.apply_plan_spec(window.plan_spec)
             else:
-                plan = self.controller.plan_insert(window.uniques, rows)
-            d_inputs = self._refill_device_inputs(plan)
-        self._apply_window_stats(window)
-        evicted, ev_acc = self._run_refill(d_inputs)
-        n_evict = plan.evict_slots.shape[0]
-        if n_evict:
-            item = (plan.evict_tables, plan.evict_idxs, self._deferred_host(evicted[:n_evict]))
-            if ev_acc is not None:
-                # the evicted state leaves by the same deferred copy; the
-                # EvictionManager writes a fourth element to the store
-                item += (self._deferred_host(ev_acc[:n_evict]),)
-            self.eviction_fifo.put(item)
-        self.metrics.caching_overhead_s += time.perf_counter() - t0
-        self.metrics.refills += 1
+                if window.plan_spec is not None:
+                    plan = build_insert_plan(window.plan_spec, rows, self.geo.dim)
+                    self.controller.apply_plan_spec(window.plan_spec)
+                else:
+                    plan = self.controller.plan_insert(window.uniques, rows)
+                d_inputs = self._refill_device_inputs(plan)
+            self._apply_window_stats(window)
+            evicted, ev_acc = self._run_refill(d_inputs)
+            n_evict = plan.evict_slots.shape[0]
+            if n_evict:
+                # the evicted state, with adagrad_master_state, leaves by the
+                # same deferred copy; the EvictionManager writes it to the
+                # store; the window's index names the writeback's span
+                rows_fn = self._deferred_host(evicted[:n_evict])
+                acc_fn = None if ev_acc is None else self._deferred_host(ev_acc[:n_evict])
+                self.eviction_fifo.put(
+                    (plan.evict_tables, plan.evict_idxs, rows_fn, acc_fn, win))
+            self.metrics.caching_overhead_s += time.perf_counter() - t0
+            self.metrics.refills += 1
 
     def _apply_window_stats(self, window: WindowData) -> None:
         """Adopt the window's shadow-computed statistics (cdlrm_tpu
@@ -931,7 +947,7 @@ class CachedDlrmTrainer:
             npad = self._hot - 1 - n
             if npad > 0:
                 arr[n:-1] = (self.geo.trash_row - 1 - np.arange(npad)) % max(1, self.geo.trash_row)
-            self._hot_slots_dev = self._to_device(np.sort(arr).astype(np.int32))
+            self._hot_slots_dev = self._to_device(np.sort(arr).astype(np.int32), "h2d_bytes.refill")
             self._cold_bucket_window = pow2_bucket(max(stats.worst_cold, 1), min_size=64)
 
     # ------------------------------------------------------------------- batch
@@ -1035,9 +1051,10 @@ class CachedDlrmTrainer:
                 )
         elif self.pooled_width:
             raise ValueError("trainer built for pooled batches, got single-index")
-        if mask is None:
-            return probe(ls_i, master)
-        return probe(ls_i.reshape(t_count, -1), master, valid=mask.reshape(t_count, -1))
+        with profiling.span("pipeline.probe"):
+            if mask is None:
+                return probe(ls_i, master)
+            return probe(ls_i.reshape(t_count, -1), master, valid=mask.reshape(t_count, -1))
 
     def _stage_batch(self, batch: Batch, wire: tuple, aux: tuple, train: bool) -> tuple:
         """Copy one batch's step inputs to the device, in the step's argument
@@ -1045,15 +1062,18 @@ class CachedDlrmTrainer:
         padded aux slots and rows, and for training the targets (uint8 0/1
         with round_targets, as on cdlrm_tpu's wire)."""
         t_count, b = batch.ls_i.shape[:2]
-        mask = (
-            self._dummy_mask(t_count, b) if batch.ls_mask is None
-            else self._to_device(batch.ls_mask)
-        )
-        out = (self._to_device(self._wire_x(batch.x)), self._to_device(wire[0]), mask)
-        out += tuple(self._to_device(a) for a in wire[1:] + aux)
-        if train:
-            y = batch.y.astype(np.uint8) if self.cfg.round_targets else batch.y
-            out += (self._to_device(y),)
+        counter = "h2d_bytes.batch" if train else "h2d_bytes.eval"
+        with profiling.span("pipeline.h2d"):
+            mask = (
+                self._dummy_mask(t_count, b) if batch.ls_mask is None
+                else self._to_device(batch.ls_mask, counter)
+            )
+            out = (self._to_device(self._wire_x(batch.x), counter),
+                   self._to_device(wire[0], counter), mask)
+            out += tuple(self._to_device(a, counter) for a in wire[1:] + aux)
+            if train:
+                y = batch.y.astype(np.uint8) if self.cfg.round_targets else batch.y
+                out += (self._to_device(y, counter),)
         return out
 
     def _assemble(self, batch: Batch, b_loc: int):
@@ -1286,8 +1306,9 @@ class CachedDlrmTrainer:
                 native.block_union_reset(union, rmap)
             elif union is not None:
                 rmap[union] = -1
-        ranks = [self._to_device(r) for r in rows]
-        return ranks, self._to_device(blk_slots), self._to_device(blk_counts)
+        ranks = [self._to_device(r, "h2d_bytes.batch") for r in rows]
+        return (ranks, self._to_device(blk_slots, "h2d_bytes.batch"),
+                self._to_device(blk_counts, "h2d_bytes.batch"))
 
     def train(self, max_steps: Optional[int] = None, log_fn=print) -> TrainMetrics:
         """Main loop (cdlrm_tpu trainer.py:1774): consume batches the
@@ -1314,7 +1335,8 @@ class CachedDlrmTrainer:
         def flush_pending():
             if not pending:
                 return
-            vals = torch.stack([v for pair in pending for v in pair]).cpu().tolist()
+            with profiling.span("train.flush", step=self.global_step):
+                vals = torch.stack([v for pair in pending for v in pair]).cpu().tolist()
             m = self.metrics
             for ls_v, c_v in zip(vals[0::2], vals[1::2]):
                 m.loss_sum += ls_v
@@ -1409,15 +1431,17 @@ class CachedDlrmTrainer:
             trainer.py:1948-1999); returns (loss_sum, correct)."""
             if not self._adagrad:
                 hot_extra = (self._hot_slots_dev,) if self._hot else ()
-                self.params, self.cache, loss, corr = step(
-                    self.params, self.cache, *args, *hot_extra, self._lr, self._lr_emb,
-                    touched=self.touched,
-                )
+                with profiling.span("train.step", step=self.global_step):
+                    self.params, self.cache, loss, corr = step(
+                        self.params, self.cache, *args, *hot_extra, self._lr, self._lr_emb,
+                        touched=self.touched,
+                    )
                 return loss, corr
-            (self.params, self.cache, self.dense_acc, self.embed_acc, loss, corr) = step(
-                self.params, self.cache, *args, self.dense_acc, self.embed_acc,
-                self._lr, self._lr_emb, touched=self.touched,
-            )
+            with profiling.span("train.step", step=self.global_step):
+                (self.params, self.cache, self.dense_acc, self.embed_acc, loss, corr) = step(
+                    self.params, self.cache, *args, self.dense_acc, self.embed_acc,
+                    self._lr, self._lr_emb, touched=self.touched,
+                )
             return loss, corr
 
         def run_block(items):
@@ -1461,7 +1485,8 @@ class CachedDlrmTrainer:
             items, stream_end, boundary = [], False, None
             cap = block_cap()
             while len(items) < cap:
-                item = pipe.get()
+                with profiling.span("train.wait_batch", step=self.global_step + len(items)):
+                    item = pipe.get()
                 if item is None:
                     stream_end = True
                     break
@@ -1482,14 +1507,15 @@ class CachedDlrmTrainer:
                 break
             if boundary is not None:
                 rows_ex = None
-                if self._stager is not None:
-                    popped = self._stager.get()
-                    window, staged = popped if popped else (None, None)
-                elif self._mh_pending is not None:
-                    window, rows_ex, staged = self._mh_pending
-                    self._mh_pending = None
-                else:
-                    window, staged = self.prefetcher.get_window(), None
+                with profiling.span("train.wait_window", step=self.global_step):
+                    if self._stager is not None:
+                        popped = self._stager.get()
+                        window, staged = popped if popped else (None, None)
+                    elif self._mh_pending is not None:
+                        window, rows_ex, staged = self._mh_pending
+                        self._mh_pending = None
+                    else:
+                        window, staged = self.prefetcher.get_window(), None
                 if window is None:
                     break
                 self._mh_want_prefetch = self._mh_prestage

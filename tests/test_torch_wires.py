@@ -243,17 +243,6 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in ev.get("name", "") for ev in trace["traceEvents"])
 
 
-def test_device_time_and_step_timer():
-    t0 = profiling.device_time()
-    assert profiling.device_time(torch.ones(2), "not a tensor") >= t0
-    timer = profiling.StepTimer()
-    timer.tick()
-    timer.tick(3)
-    assert timer.steps == 4 and timer.ms_per_iter >= 0.0
-    timer.reset()
-    assert timer.steps == 0
-
-
 # ------------------------------------------------------- the current device
 
 
