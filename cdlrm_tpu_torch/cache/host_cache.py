@@ -22,6 +22,7 @@ import numpy as np
 from cdlrm_tpu_torch.cache.geometry import CacheGeometry
 from cdlrm_tpu_torch.ops import native
 from cdlrm_tpu_torch.train.step import pack_slots, wire_bytes, wire_width
+from cdlrm_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -623,23 +624,9 @@ class HostCacheController:
         identical values from the shared index stream + identical occupancy
         metadata: the basis of the per-window negotiated aux bucket
         (trainer._window_buckets) that replaces the worst-case
-        T * aux_capacity staging shape."""
-        if self._slot_map is not None:
-            ids = self._map_ids(ls_i, valid)
-            miss = self._slot_map[ids + self._id_bases[:, None]] < 0
-            if valid is not None:
-                miss &= valid
-            return int(miss.sum())
-        geo = self.geo
-        total = 0
-        for t in range(ls_i.shape[0]):
-            idx = ls_i[t].astype(np.int32, copy=False)
-            occ = self.occupancy[t][idx % np.int32(geo.sets[t])]  # [N, ways]
-            miss = ~(occ == idx[:, None]).any(axis=1)
-            if valid is not None:
-                miss &= valid[t]
-            total += int(miss.sum())
-        return total
+        T * aux_capacity staging shape. Counted by
+        :meth:`count_probe_slices`."""
+        return int(self.count_probe_slices(ls_i, valid, want_uniq=False)[0, 0])
 
     def count_dedup_uniques(
         self, ls_i: np.ndarray, valid: Optional[np.ndarray] = None
@@ -695,7 +682,81 @@ class HostCacheController:
         set — misses always count (aux slots are never hot); 0 when no hot
         set. Pure function of host-identical state, so every multi-host
         peer derives the same per-window buckets with zero communication
-        (trainer._apply_window_stats)."""
+        (trainer._apply_window_stats). Counted by
+        :meth:`count_probe_slices`."""
+        m, u, c, _ = self.count_probe_slices(
+            ls_i, valid, want_uniq=want_uniq, hot_slots=hot_slots)[0]
+        return int(m), int(u), int(c)
+
+    def count_probe_slices(
+        self,
+        ls_i: np.ndarray,
+        valid: Optional[np.ndarray] = None,
+        ndev: int = 1,
+        slice_n: Optional[int] = None,
+        want_uniq: bool = True,
+        hot_slots: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Probe statistics of each of ``ndev`` replica slices of a probe
+        batch [T, N]: slice r is columns [r * slice_n, (r + 1) * slice_n)
+        (``slice_n`` defaults to N). Returns [ndev, 4] int64 rows of
+        (misses, uniques, cold lookups, valid lookups): the first three as
+        :meth:`count_probe_stats` defines them, uniques 0 unless
+        ``want_uniq``, cold 0 without a hot set. One native call for every
+        slice and table (csrc cdlrm_count_probe_stats), which holds no GIL,
+        when the library is built (counter ``prefetch.stats_native``); else
+        the numpy passes, slice by slice (``prefetch.stats_numpy``). The one
+        place that chooses between the two."""
+        slice_n = ls_i.shape[1] if slice_n is None else int(slice_n)
+        if native.available():
+            if self._slot_map is not None:
+                residency = dict(map_flat=self._slot_map, id_bases=self._id_bases)
+            else:
+                residency = dict(occupancy=self.occupancy,
+                                 table_offsets=self.geo.table_offsets)
+            out = native.count_probe_stats(
+                ls_i, slice_n, ndev, valid=valid, want_uniq=want_uniq,
+                hot_slots=hot_slots, **residency)
+            profiling.count("prefetch.stats_native", 1)
+            return out
+        out = np.zeros((ndev, 4), np.int64)
+        for r in range(ndev):
+            sl = slice(r * slice_n, (r + 1) * slice_n)
+            ls_r = ls_i[:, sl]
+            v = None if valid is None else valid[:, sl]
+            if want_uniq or hot_slots is not None:
+                out[r, :3] = self._probe_stats_numpy(ls_r, v, want_uniq, hot_slots)
+            else:
+                out[r, 0] = self._misses_numpy(ls_r, v)
+            out[r, 3] = ls_r.size if v is None else int(v.sum())
+        profiling.count("prefetch.stats_numpy", 1)
+        return out
+
+    def _misses_numpy(self, ls_i: np.ndarray, valid: Optional[np.ndarray]) -> int:
+        if self._slot_map is not None:
+            ids = self._map_ids(ls_i, valid)
+            miss = self._slot_map[ids + self._id_bases[:, None]] < 0
+            if valid is not None:
+                miss &= valid
+            return int(miss.sum())
+        geo = self.geo
+        total = 0
+        for t in range(ls_i.shape[0]):
+            idx = ls_i[t].astype(np.int32, copy=False)
+            occ = self.occupancy[t][idx % np.int32(geo.sets[t])]  # [N, ways]
+            miss = ~(occ == idx[:, None]).any(axis=1)
+            if valid is not None:
+                miss &= valid[t]
+            total += int(miss.sum())
+        return total
+
+    def _probe_stats_numpy(
+        self,
+        ls_i: np.ndarray,
+        valid: Optional[np.ndarray],
+        want_uniq: bool,
+        hot_slots: Optional[np.ndarray],
+    ) -> Tuple[int, int, int]:
         miss_total = 0
         uniq_total = 0
         cold_total = 0

@@ -23,6 +23,7 @@ the shutdown sentinel.
 
 from __future__ import annotations
 
+import math
 import queue
 import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -403,10 +404,13 @@ class LookaheadPrefetcher(threading.Thread):
 
     def _window_stats(self, window: List, pool, hot_slots=None):
         """Post-plan probe statistics of every (replica, batch) slice in the
-        window (see WindowData.stats). The shadow is read-only here; batch
-        entries parallelize over the worker pool (thread backend — the
-        counting kernels release the GIL; the process backend counts on this
-        thread, its workers cannot see the shadow)."""
+        window (see WindowData.stats). The shadow is read-only here. Each
+        batch entry is one ``count_probe_slices`` call for all its replica
+        slices: with the native library built, one C call that holds no GIL
+        while it walks every table (counter ``prefetch.stats_native``), else
+        the numpy passes (``prefetch.stats_numpy``). Entries parallelize over
+        the worker pool (thread backend); the process backend counts on this
+        thread, its workers cannot see the shadow."""
         from cdlrm_tpu_torch.cache.host_cache import WindowStats
 
         ndev, b_loc, want_uniq = self.stats_spec[:3]
@@ -415,28 +419,15 @@ class LookaheadPrefetcher(threading.Thread):
         def one_entry(entry):
             ls, mask = entry if isinstance(entry, tuple) else (entry, None)
             t_count = ls.shape[0]
-            wm = wu = wc = tl = tu = 0
-            for r in range(ndev):
-                sl = slice(r * b_loc, (r + 1) * b_loc)
-                v = (
-                    None if mask is None
-                    else mask[:, sl].reshape(t_count, -1)
-                )
-                ls_r = ls[:, sl].reshape(t_count, -1)
-                n_lk = ls_r.size if v is None else int(v.sum())
-                if want_uniq or hot_slots is not None:
-                    m, u, c = shadow.count_probe_stats(
-                        ls_r, valid=v, want_uniq=want_uniq,
-                        hot_slots=hot_slots,
-                    )
-                    wu = max(wu, u)
-                    wc = max(wc, c)
-                    tu += u
-                else:
-                    m = shadow.count_misses(ls_r, valid=v)
-                wm = max(wm, m)
-                tl += n_lk
-            return wm, wu, wc, tl, tu
+            # a replica's b_loc batch columns of [T, B] or [T, B, P], flattened
+            per = shadow.count_probe_slices(
+                ls.reshape(t_count, -1),
+                None if mask is None else mask.reshape(t_count, -1),
+                ndev=ndev, slice_n=b_loc * math.prod(ls.shape[2:]),
+                want_uniq=want_uniq, hot_slots=hot_slots,
+            )
+            wm, wu, wc = per[:, :3].max(axis=0)
+            return int(wm), int(wu), int(wc), int(per[:, 3].sum()), int(per[:, 1].sum())
 
         if self.backend == "process":
             parts = [one_entry(e) for e in window]

@@ -18,6 +18,9 @@
 //      fetch_unique_idx_slices, model_no_ddp.py:80-87; writeback
 //      cache_manager.py:58-62) — OpenMP row-parallel memcpy.
 //
+// Beside them, the prefetcher's per-window probe statistics (section 5):
+// one GIL-free call per window entry instead of a numpy loop over tables.
+//
 // All entry points are extern "C" and called through ctypes
 // (cdlrm_tpu_torch/ops/native.py). Thread counts come from OpenMP's runtime
 // default (the deployment host is many-core; CI may be 1-core — the loops
@@ -805,6 +808,141 @@ int64_t cdlrm_block_ranks(const int32_t* uniq_cat, const int64_t* step_off,
 void cdlrm_block_union_reset(const int32_t* union_slots, int64_t m,
                              int32_t* rank_map) {
   for (int64_t i = 0; i < m; ++i) rank_map[union_slots[i]] = -1;
+}
+
+// ---------------------------------------------------------------------------
+// 5. window probe statistics (cache/prefetcher.py _window_stats)
+// ---------------------------------------------------------------------------
+
+// Probe statistics of one window entry against the CURRENT residency, for
+// each of ndev replica slices: slice r is columns [r*slice_n, (r+1)*slice_n)
+// of idx, clipped to n. out[r*4 + k] (HostCacheController.count_probe_stats
+// and count_misses, cache/host_cache.py):
+//   k=0 misses: valid lookups whose id is not resident;
+//   k=1 uniques (want_uniq, else 0): per table, distinct RESIDENT ids plus
+//       every missing occurrence (each miss takes its own aux slot);
+//   k=2 cold (has_hot, else 0): valid lookups whose resolved slot is not in
+//       the SORTED hot set hot[0..n_hot); misses always count;
+//   k=3 valid lookups.
+// Residency is the flat id->row map when map_flat is non-null (table t's
+// ids must lie in [0, end_t - id_bases[t]), end_t the next table's base or
+// map_len), else the set-associative occupancy walk (numpy semantics: the
+// id truncated to int32, set = floor-mod, first matching way). Masked lanes
+// are skipped before their id is read. Single-threaded: the caller's pool
+// runs one call per entry beside the assembly thread's OpenMP probes.
+// Returns 0; t + 1 for the first (slice, table) whose unmasked lanes hold an
+// id outside its map segment (out is then incomplete); -1 on an allocation
+// failure.
+int64_t cdlrm_count_probe_stats(
+    const int32_t* map_flat, const int64_t* id_bases, int64_t map_len,
+    const int32_t* const* occ_ptrs, const int64_t* sets, int64_t ways,
+    const int64_t* table_offsets, int64_t t_count, const int64_t* idx,
+    int64_t n, const uint8_t* valid, int64_t ndev, int64_t slice_n,
+    int64_t want_uniq, int64_t has_hot, const int64_t* hot, int64_t n_hot,
+    int64_t* out) {
+  // distinct resident ids: open addressing over a power-of-two table at
+  // least twice the slice, emptied between tables by a generation stamp
+  int64_t cap = 16;
+  while (cap < 2 * slice_n) cap <<= 1;
+  int shift = 64;
+  for (int64_t c = cap; c > 1; c >>= 1) --shift;
+  int64_t* keys = nullptr;
+  uint32_t* stamp = nullptr;
+  if (want_uniq) {
+    keys = (int64_t*)malloc((size_t)cap * sizeof(int64_t));
+    stamp = (uint32_t*)calloc((size_t)cap, sizeof(uint32_t));
+    if (!keys || !stamp) {
+      free(keys);
+      free(stamp);
+      return -1;
+    }
+  }
+  uint32_t gen = 0;
+  int64_t rc = 0;
+  const int64_t PF = 16;
+  for (int64_t r = 0; r < ndev && rc == 0; ++r) {
+    const int64_t lo = std::min(r * slice_n, n);
+    const int64_t hi = std::min(lo + slice_n, n);
+    int64_t miss = 0, uniq = 0, cold = 0, nvalid = 0;
+    for (int64_t t = 0; t < t_count; ++t) {
+      const int64_t* ids = idx + t * n;
+      const uint8_t* v = valid ? valid + t * n : nullptr;
+      int64_t base = 0, size = 0, sets_t = 0, offset = 0;
+      const int32_t* occ = nullptr;
+      if (map_flat) {
+        base = id_bases[t];
+        size = (t + 1 < t_count ? id_bases[t + 1] : map_len) - base;
+      } else {
+        occ = occ_ptrs[t];
+        sets_t = sets[t];
+        offset = table_offsets[t];
+      }
+      const int32_t sets32 = (int32_t)sets_t;
+      ++gen;
+      int64_t t_valid = 0, t_miss = 0, t_distinct = 0, t_hot = 0;
+      for (int64_t i = lo; i < hi; ++i) {
+        if (i + PF < hi && (!v || v[i + PF])) {
+          const int64_t p = ids[i + PF];
+          if (map_flat) {
+            if (p >= 0 && p < size) __builtin_prefetch(map_flat + base + p, 0, 1);
+          } else {
+            int32_t s = (int32_t)p % sets32;
+            if (s < 0) s += sets32;
+            __builtin_prefetch(occ + (int64_t)s * ways, 0, 1);
+          }
+        }
+        if (v && !v[i]) continue;
+        const int64_t id = ids[i];
+        ++t_valid;
+        int64_t slot = -1;
+        if (map_flat) {
+          if (id < 0 || id >= size) {
+            rc = t + 1;
+            break;
+          }
+          slot = map_flat[base + id];
+        } else {
+          const int32_t w32 = (int32_t)id;
+          int32_t s = w32 % sets32;
+          if (s < 0) s += sets32;
+          const int32_t* row = occ + (int64_t)s * ways;
+          for (int64_t k = 0; k < ways; ++k) {
+            if (row[k] == w32) {
+              slot = offset + k * sets_t + s;
+              break;
+            }
+          }
+        }
+        if (slot < 0) {
+          ++t_miss;
+          continue;
+        }
+        if (want_uniq) {
+          uint64_t h = ((uint64_t)id * 0x9E3779B97F4A7C15ULL) >> shift;
+          while (stamp[h] == gen && keys[h] != id) h = (h + 1) & (cap - 1);
+          if (stamp[h] != gen) {
+            stamp[h] = gen;
+            keys[h] = id;
+            ++t_distinct;
+          }
+        }
+        if (has_hot && n_hot > 0 && std::binary_search(hot, hot + n_hot, slot))
+          ++t_hot;
+      }
+      if (rc) break;
+      miss += t_miss;
+      nvalid += t_valid;
+      if (want_uniq) uniq += t_distinct + t_miss;
+      if (has_hot) cold += t_valid - t_hot;
+    }
+    out[r * 4 + 0] = miss;
+    out[r * 4 + 1] = uniq;
+    out[r * 4 + 2] = cold;
+    out[r * 4 + 3] = nvalid;
+  }
+  free(keys);
+  free(stamp);
+  return rc;
 }
 
 }  // extern "C"

@@ -173,6 +173,11 @@ def _load() -> Optional[ctypes.CDLL]:
         ]
         lib.cdlrm_block_union_reset.restype = None
         lib.cdlrm_block_union_reset.argtypes = [_PI32, _I64, _PI32]
+        lib.cdlrm_count_probe_stats.restype = _I64
+        lib.cdlrm_count_probe_stats.argtypes = [
+            _PI32, _PI64, _I64, _PPI32, _PI64, _I64, _PI64, _I64, _PI64, _I64,
+            _PU8, _I64, _I64, _I64, _I64, _PI64, _I64, _PI64,
+        ]
         lib.cdlrm_num_threads.restype = ctypes.c_int
         lib.cdlrm_set_num_threads.argtypes = [ctypes.c_int]
         _LIB = lib
@@ -643,3 +648,65 @@ def block_union_reset(union_slots: np.ndarray, rank_map: np.ndarray) -> None:
     lib.cdlrm_block_union_reset(
         _p(union_slots, _PI32), union_slots.size, _p(rank_map, _PI32)
     )
+
+
+def count_probe_stats(
+    ls_i: np.ndarray,
+    slice_n: int,
+    ndev: int = 1,
+    valid: Optional[np.ndarray] = None,
+    want_uniq: bool = True,
+    hot_slots: Optional[np.ndarray] = None,
+    map_flat: Optional[np.ndarray] = None,
+    id_bases: Optional[np.ndarray] = None,
+    occupancy: Optional[List[np.ndarray]] = None,
+    table_offsets: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Probe statistics of one window entry ``ls_i`` [T, N] (csrc
+    cdlrm_count_probe_stats), for each of ``ndev`` replica slices of
+    ``slice_n`` columns: [ndev, 4] int64 rows of (misses, uniques, cold
+    lookups, valid lookups), exactly as HostCacheController's
+    count_probe_stats and count_misses define them. Residency is the flat
+    map (``map_flat`` with ``id_bases``) or else the occupancy walk
+    (``occupancy`` with ``table_offsets``). One single-threaded call that
+    holds no GIL. An id outside its table's map segment in an unmasked lane
+    raises ValueError."""
+    lib = _load()
+    assert lib is not None
+    t_count, n = ls_i.shape
+    if ndev < 1 or slice_n < 0:
+        raise ValueError(f"{ndev} slices of {slice_n} columns")
+    ls_i = np.ascontiguousarray(ls_i, dtype=np.int64)
+    vptr = None
+    if valid is not None:
+        if valid.shape != ls_i.shape:
+            raise ValueError(f"valid mask {valid.shape} against lookups {ls_i.shape}")
+        valid = np.ascontiguousarray(valid)
+        valid = valid.view(np.uint8) if valid.dtype == np.bool_ else valid.astype(np.uint8)
+        vptr = _p(valid, _PU8)
+    hot = np.ascontiguousarray(
+        np.zeros(0, np.int64) if hot_slots is None else hot_slots, dtype=np.int64)
+    out = np.empty((ndev, 4), dtype=np.int64)
+    if map_flat is not None:
+        bases = np.ascontiguousarray(id_bases, dtype=np.int64)
+        residency = (_p(map_flat, _PI32), _p(bases, _PI64), map_flat.shape[0],
+                     None, None, 0, None)
+    else:
+        sets = np.array([o.shape[0] for o in occupancy], dtype=np.int64)
+        offs = np.ascontiguousarray(table_offsets, dtype=np.int64)
+        residency = (None, None, 0, (_PI32 * t_count)(*[_p(o, _PI32) for o in occupancy]),
+                     _p(sets, _PI64), occupancy[0].shape[1], _p(offs, _PI64))
+    rc = lib.cdlrm_count_probe_stats(
+        *residency, t_count, _p(ls_i, _PI64), n, vptr, int(ndev), int(slice_n),
+        int(want_uniq), int(hot_slots is not None), _p(hot, _PI64), hot.size,
+        _p(out, _PI64),
+    )
+    if rc == -1:
+        raise MemoryError("cdlrm_count_probe_stats scratch allocation failed")
+    if rc > 0:
+        t = int(rc) - 1
+        end = bases[t + 1] if t + 1 < t_count else map_flat.shape[0]
+        raise ValueError(
+            f"table {t}: lookup id out of range [0, {int(end - bases[t])})"
+        )
+    return out

@@ -405,6 +405,105 @@ def test_probes_equal(monkeypatch, pooled, slot_map, native_on):
     same(pc.count_probe_stats(ls, **kw), jc.count_probe_stats(ls, **kw))
 
 
+def _hot_set(ctl, kind, seed=5):
+    """A sorted hot set of global cache rows for the cold count: None
+    (absent), empty, or a sample of the controller's resident rows."""
+    if kind == "absent":
+        return None
+    if kind == "empty":
+        return np.zeros(0, np.int64)
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([ctl.resident_slots(t, np.arange(min(n, 40)))
+                           for t, n in enumerate(LN_EMB)])
+    rows = np.unique(rows[rows >= 0])
+    return np.sort(rng.choice(rows, rows.size // 2, replace=False)).astype(np.int64)
+
+
+@pytest.mark.parametrize("ndev", [1, 2], ids=["1dev", "2dev"])
+@pytest.mark.parametrize("hot", ["absent", "empty", "hot"])
+@pytest.mark.parametrize("want_uniq", [True, False], ids=["uniq", "no-uniq"])
+@pytest.mark.parametrize("slot_map", [False, True], ids=["setassoc", "map"])
+@pytest.mark.parametrize("pooled", [False, True], ids=["single", "pooled"])
+def test_probe_stats_native_equal(monkeypatch, pooled, slot_map, want_uniq, hot, ndev):
+    """count_probe_stats, count_misses and count_probe_slices (the window
+    stats' one native call per entry, csrc cdlrm_count_probe_stats): the
+    native counts equal the numpy passes and cdlrm_tpu's, slice by slice."""
+    if not pnative.available():
+        pytest.skip("the native host library is not built here")
+    (jc, _, _, _), (pc, _, _, _) = _warm_pair(slot_map)
+    ls, valid = _lookups(np.random.default_rng(12), n=2 * AUX, pooled=pooled)
+    hot_slots = _hot_set(pc, hot)
+    slice_n = ls.shape[1] // ndev
+    got = pc.count_probe_slices(ls, valid, ndev=ndev, slice_n=slice_n,
+                                want_uniq=want_uniq, hot_slots=hot_slots)
+    native_whole = (pc.count_probe_stats(ls, valid=valid, want_uniq=want_uniq,
+                                         hot_slots=hot_slots),
+                    pc.count_misses(ls, valid=valid))
+    assert got.dtype == np.int64 and got.shape == (ndev, 4)
+    for r in range(ndev):
+        sl = slice(r * slice_n, (r + 1) * slice_n)
+        ls_r = ls[:, sl]
+        v = None if valid is None else valid[:, sl]
+        m, u, c = jc.count_probe_stats(ls_r, valid=v, want_uniq=want_uniq, hot_slots=hot_slots)
+        assert m == jc.count_misses(ls_r, valid=v)
+        n_valid = ls_r.size if v is None else int(v.sum())
+        want = [m, u if want_uniq else 0, c if hot_slots is not None else 0, n_valid]
+        assert got[r].tolist() == want, r
+        assert 0 < m < n_valid  # hits and misses both
+        if want_uniq:
+            assert m < u < n_valid  # resident ids did repeat
+        if hot == "hot":
+            assert m < c < n_valid  # some resident lookups were hot
+        elif hot == "empty":
+            assert c == n_valid
+    monkeypatch.setattr(pnative, "available", lambda: False)
+    same(pc.count_probe_slices(ls, valid, ndev=ndev, slice_n=slice_n, want_uniq=want_uniq,
+                               hot_slots=hot_slots), got, "numpy slices")
+    numpy_whole = (pc.count_probe_stats(ls, valid=valid, want_uniq=want_uniq,
+                                        hot_slots=hot_slots),
+                   pc.count_misses(ls, valid=valid))
+    jax_whole = (jc.count_probe_stats(ls, valid=valid, want_uniq=want_uniq, hot_slots=hot_slots),
+                 jc.count_misses(ls, valid=valid))
+    assert native_whole == numpy_whole == jax_whole
+
+
+@pytest.mark.parametrize("native_on", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_probe_stats_reject_out_of_range_ids(monkeypatch, masked, native_on):
+    """The map form's per-table range check on the stats path (the port's
+    counterpart of tests/test_cache.py's slot-map test): an id past its
+    table's segment, or below 0, in an unmasked lane raises ValueError
+    "out of range" from count_misses, count_probe_stats and
+    count_probe_slices, in any replica slice; in a masked lane it is never
+    read, and the counts skip it."""
+    if not native_on:
+        monkeypatch.setattr(pnative, "available", lambda: False)
+    elif not pnative.available():
+        pytest.skip("the native host library is not built here")
+    ln_emb = (50, 40, 30)
+    geo = pgeometry.CacheGeometry.build(ln_emb, 4, 8, 2, 16)
+    ctl = phost.HostCacheController(geo, seed=1, ln_emb=np.asarray(ln_emb), slot_map=True)
+    for bad in (45, -3):  # 45 < ln_emb[0]: lands in table 2's segment
+        ls = np.stack([np.arange(8, dtype=np.int64) for _ in ln_emb])
+        ls[1, 6] = bad  # in the second of two slices of 4
+        valid = np.ones((3, 8), bool)
+        if masked:
+            valid[1, 6] = False
+            assert ctl.count_misses(ls, valid=valid) == 23
+            assert ctl.count_probe_stats(ls, valid=valid) == (23, 23, 0)
+            got = ctl.count_probe_slices(ls, valid, ndev=2, slice_n=4, hot_slots=np.zeros(0))
+            assert got.tolist() == [[12, 12, 12, 12], [11, 11, 11, 11]]
+        else:
+            for call in (lambda: ctl.count_misses(ls),
+                         lambda: ctl.count_probe_stats(ls),
+                         lambda: ctl.count_probe_slices(ls, None, ndev=2, slice_n=4)):
+                with pytest.raises(ValueError, match="out of range"):
+                    call()
+    if native_on:  # the binding checks the mask's shape before the kernel reads it
+        with pytest.raises(ValueError, match="valid mask"):
+            ctl.count_probe_slices(ls, valid[:, :4], ndev=2, slice_n=4)
+
+
 def test_insert_plans_equal_over_windows():
     """plan_insert_spec, build_insert_plan and apply_plan_spec over windows
     that evict: the same specs, joined plans, occupancy and generator state,
@@ -621,16 +720,17 @@ class _Stream:
                 yield item
 
 
-def _windows(pkg, stream, lookahead, want_uniq, skip=0, hot=0):
+def _windows(pkg, stream, lookahead, want_uniq, skip=0, hot=0, ndev=1, mmap_dir=None):
     host, geometry, master, _ = pkg
     prefetcher = jprefetcher if pkg is JAX else pprefetcher
     geo = geometry.CacheGeometry.build(LN_EMB, DIM, SETS, WAYS, AUX)
-    tables = master.MasterTables(LN_EMB, DIM, rng=np.random.default_rng(1))
+    tables = master.MasterTables(LN_EMB, DIM, rng=np.random.default_rng(1), mmap_dir=mmap_dir)
     ctl = host.HostCacheController(geo, seed=1, ln_emb=LN_EMB, slot_map=True)
     pf = prefetcher.LookaheadPrefetcher(
         cache_stream_fn=stream, master=tables, lookahead=lookahead, batch_fifo_size=8,
         cache_workers=2, skip_batches=skip, shadow=ctl.clone(),
-        stats_spec=(1, stream.batch, want_uniq, hot),
+        backend="thread" if mmap_dir is None else "process",
+        stats_spec=(ndev, stream.batch // ndev, want_uniq, hot),
     )
     pf.start()
     out = []
@@ -647,17 +747,25 @@ def _windows(pkg, stream, lookahead, want_uniq, skip=0, hot=0):
     return out
 
 
-@pytest.mark.parametrize("pooled,want_uniq,skip,hot", [
-    (0, True, 0, 0), (3, True, 0, 0), (0, False, 4, 0), (0, True, 0, 16), (3, False, 0, 16),
-], ids=["single", "pooled", "resumed", "hot", "pooled-hot"])
-def test_prefetcher_windows_equal(pooled, want_uniq, skip, hot):
+@pytest.mark.parametrize("native_on", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("pooled,want_uniq,skip,hot,ndev", [
+    (0, True, 0, 0, 1), (3, True, 0, 0, 1), (0, False, 4, 0, 1), (0, True, 0, 16, 1),
+    (3, False, 0, 16, 1), (3, True, 0, 16, 2), (0, False, 0, 0, 2),
+], ids=["single", "pooled", "resumed", "hot", "pooled-hot", "pooled-hot-2dev", "misses-2dev"])
+def test_prefetcher_windows_equal(monkeypatch, pooled, want_uniq, skip, hot, ndev, native_on):
     """The LookaheadPrefetcher's windows: uniques, master rows, the shadow
     planner's spec, the window stats and the stream cursor, field by field;
     with the hot tier (``hot`` = H) also the window's hot list (the H - 1
-    hottest resident rows, ``_select_hot``) and its worst cold count."""
+    hottest resident rows, ``_select_hot``) and its worst cold count. The
+    port counts its window stats through the native library and, with it
+    patched away, through the numpy passes; cdlrm_tpu's are the same."""
+    if not native_on:
+        monkeypatch.setattr(pnative, "available", lambda: False)
+    elif not pnative.available():
+        pytest.skip("the native host library is not built here")
     stream = _Stream(pooled=pooled)
-    jw = _windows(JAX, stream, 4, want_uniq, skip, hot)
-    pw = _windows(PORT, stream, 4, want_uniq, skip, hot)
+    jw = _windows(JAX, stream, 4, want_uniq, skip, hot, ndev)
+    pw = _windows(PORT, stream, 4, want_uniq, skip, hot, ndev)
     assert len(pw) == len(jw) == (12 - skip) // 4
     for p, j in zip(pw, jw):
         assert type(p).__module__ == "cdlrm_tpu_torch.cache.prefetcher"
@@ -669,6 +777,34 @@ def test_prefetcher_windows_equal(pooled, want_uniq, skip, hot):
         else:
             assert p.hot_slots is None and p.stats.worst_cold == 0
     assert sum(w.plan_spec.evict_slots.size for w in pw) > 0  # later windows evicted
+
+
+@pytest.mark.parametrize("backend", ["thread", "process"])
+@pytest.mark.parametrize("native_on", [True, False], ids=["native", "numpy"])
+def test_prefetcher_counts_how_it_counted_the_stats(tmp_path, monkeypatch, native_on, backend):
+    """``prefetch.stats_native`` counts the window entries whose stats the
+    native call counted, ``prefetch.stats_numpy`` those the numpy passes
+    counted: one of the two moves by every entry, the other stays. The
+    process backend counts on the prefetcher thread through the same call,
+    and its windows equal cdlrm_tpu's thread-backend ones."""
+    from cdlrm_tpu_torch.utils import profiling
+
+    if not native_on:
+        monkeypatch.setattr(pnative, "available", lambda: False)
+    elif not pnative.available():
+        pytest.skip("the native host library is not built here")
+    names = ("prefetch.stats_native", "prefetch.stats_numpy")
+    stream = _Stream(pooled=3)
+    before = profiling.counters()
+    windows = _windows(PORT, stream, 4, True, hot=16, ndev=2,
+                       mmap_dir=None if backend == "thread" else str(tmp_path))
+    after = profiling.counters()
+    moved = [after.get(k, 0) - before.get(k, 0) for k in names]
+    entries = sum(w.num_batches for w in windows)
+    assert entries == 12
+    assert moved == ([entries, 0] if native_on else [0, entries])
+    if backend == "process":
+        same(windows, _windows(JAX, stream, 4, True, hot=16, ndev=2), "windows")
 
 
 def test_eviction_manager_writes_the_same_rows():
